@@ -4,6 +4,8 @@ The LogUp permutation trace (batched fingerprints, one inverse, cumsum)
 and the quotient fold are held against the JAX device bodies, run eagerly
 on the CPU, on the engine's test AIRs; and against the host numpy folders
 on chips of the MIPS machine with a real fibonacci trace. Exact equality.
+Each package works on chips, keys and traces it built itself (the port's
+twins of the test AIRs are below); numpy arrays are all that crosses.
 """
 
 import os
@@ -26,6 +28,10 @@ from ziren_tpu.stark.machine import StarkMachine
 from ziren_tpu.stark.permutation import generate_permutation_trace
 from ziren_tpu_torch.ops import tfield as tf
 from ziren_tpu_torch.stark import tfolder
+from ziren_tpu_torch.stark.chip import Air as PortAir
+from ziren_tpu_torch.stark.config import dev_config as port_dev_config
+from ziren_tpu_torch.stark.lookup import LookupKind as PortLookupKind
+from ziren_tpu_torch.stark.machine import StarkMachine as PortStarkMachine
 
 # Under pytest-xdist each worker keeps to one torch thread: the workers
 # already fill the cores, and torch's thread pool on top of them slows
@@ -34,6 +40,33 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
 
 rng = np.random.default_rng(53)
+
+
+class PortFibonacciAir(PortAir):
+    name = "Fibonacci"
+    width = 2
+    eval = FibonacciAir.eval
+    generate_trace = FibonacciAir.generate_trace
+
+
+class PortSenderAir(PortAir):
+    name = "Sender"
+    width = 1
+    generate_trace = SenderAir.generate_trace
+
+    def eval(self, b):
+        (v,) = b.main_local
+        b.send(PortLookupKind.Byte, [v], 1)
+
+
+class PortTableAir(PortAir):
+    name = "Table"
+    width = 2
+    generate_trace = TableAir.generate_trace
+
+    def eval(self, b):
+        v, mult = b.main_local
+        b.receive(PortLookupKind.Byte, [v], mult)
 
 
 def rand_f(shape):
@@ -69,11 +102,12 @@ def test_selectors_match_jax_and_host():
 
 def test_perm_trace_matches_jax():
     machine = StarkMachine(dev_config(), [SenderAir(), TableAir()])
+    port_machine = PortStarkMachine(port_dev_config(), [PortSenderAir(), PortTableAir()])
     n = 64
     alpha, beta = rand_f(4), rand_f(4)
-    for chip, w in zip(machine.chips, (1, 2)):
+    for chip, port_chip, w in zip(machine.chips, port_machine.chips, (1, 2)):
         main = rand_f((n, w))
-        got, cum = tfolder.perm_trace(chip, t(main), None, [], t(alpha), t(beta))
+        got, cum = tfolder.perm_trace(port_chip, t(main), None, [], t(alpha), t(beta))
         jgot, jcum = jfolder._perm_body(
             chip, j(main), None, jnp.zeros((0,), jnp.uint32), j(alpha), j(beta)
         )
@@ -82,17 +116,22 @@ def test_perm_trace_matches_jax():
 
 
 def test_perm_trace_without_lookups():
-    machine = StarkMachine(dev_config(), [FibonacciAir()], num_public_values=3)
+    machine = PortStarkMachine(port_dev_config(), [PortFibonacciAir()], num_public_values=3)
     got, cum = tfolder.perm_trace(
         machine.chips[0], t(rand_f((16, 2))), None, [0, 1, 2], t(rand_f(4)), t(rand_f(4))
     )
     assert got.shape == (16, 0) and np.array_equal(h(cum), np.zeros(4, np.uint32))
 
 
-@pytest.mark.parametrize("air,width", [(FibonacciAir(), 2), (TableAir(), 2)])
-def test_quotient_matches_jax(air, width):
+@pytest.mark.parametrize(
+    "air,port_air,width",
+    [(FibonacciAir(), PortFibonacciAir(), 2), (TableAir(), PortTableAir(), 2)],
+)
+def test_quotient_matches_jax(air, port_air, width):
     npv = 3 if isinstance(air, FibonacciAir) else 0
     chip = StarkMachine(dev_config(), [air], num_public_values=npv).chips[0]
+    port_chip = PortStarkMachine(port_dev_config(), [port_air], num_public_values=npv).chips[0]
+    assert port_chip.num_constraints == chip.num_constraints
     tdom = natural_domain_for_degree(16)
     qdom = tdom.create_disjoint_domain(16 << chip.log_quotient_degree)
     qn = qdom.size
@@ -106,7 +145,7 @@ def test_quotient_matches_jax(air, width):
     step = qn // tdom.size
     sels = tfolder.selectors_on_coset(tdom.log_n, tdom.shift, qdom.log_n, qdom.shift, "cpu")
     got = tfolder.quotient(
-        chip, step, t(np.zeros((qn, 0), np.uint32)), t(main_q), t(perm_q), sels,
+        port_chip, step, t(np.zeros((qn, 0), np.uint32)), t(main_q), t(perm_q), sels,
         [int(v) for v in pv], t(alphas), (t(pc[0]), t(pc[1])), t(cum), gsum,
     )
     jsels = jfolder.selectors_on_coset_device(tdom.log_n, tdom.shift, qdom.log_n, qdom.shift)
@@ -119,27 +158,44 @@ def test_quotient_matches_jax(air, width):
 
 @pytest.fixture(scope="module")
 def mips_shard():
-    from ziren_tpu.executor.asm import fibonacci_program
-    from ziren_tpu.machine.mips import execute, mips_machine
-    from ziren_tpu.stark.shape import _gen_traces
+    """fibonacci(30) built twice: by the JAX package (for its host folders)
+    and by the port (for the torch folders); the traces must agree."""
+    import ziren_tpu.executor.asm as jasm
+    import ziren_tpu.machine.mips as jmips
+    import ziren_tpu.stark.shape as jshape
+    import ziren_tpu_torch.executor.asm as tasm
+    import ziren_tpu_torch.machine.mips as tmips
+    import ziren_tpu_torch.stark.shape as tshape
 
-    program = fibonacci_program(30)
-    machine = mips_machine(dev_config())
-    pk, _vk = machine.setup(program)
-    _ex, record = execute(program)
-    traces = {c.name: (c, tr) for c, tr in _gen_traces(machine, record)}
-    pv = record.public_values
-    pv = pv.to_list() if hasattr(pv, "to_list") else list(pv)
-    return machine, pk, traces, pv
+    def build(asm, mips, shape, config):
+        program = asm.fibonacci_program(30)
+        machine = mips.mips_machine(config())
+        pk, _vk = machine.setup(program)
+        _ex, record = mips.execute(program)
+        traces = {c.name: (c, tr) for c, tr in shape._gen_traces(machine, record)}
+        pv = record.public_values
+        pv = pv.to_list() if hasattr(pv, "to_list") else list(pv)
+        return machine, pk, traces, pv
+
+    jax_side = build(jasm, jmips, jshape, dev_config)
+    port_side = build(tasm, tmips, tshape, port_dev_config)
+    assert list(jax_side[2]) == list(port_side[2]) and jax_side[3] == port_side[3]
+    for name, (_c, tr) in jax_side[2].items():
+        assert np.array_equal(tr, port_side[2][name][1]), name
+    return jax_side, port_side
 
 
 @pytest.mark.parametrize("name", ["Cpu", "Program", "Global"])
 def test_mips_chip_matches_host_folders(mips_shard, name):
     """Perm trace and quotient of MIPS chips (one with a preprocessed trace,
     the Global chip with its septic sums) against the host numpy folders."""
-    machine, pk, traces, pv = mips_shard
+    (_machine, pk, traces, pv), (_pm, port_pk, port_traces, _ppv) = mips_shard
     chip, trace = traces[name]
+    port_chip, port_trace = port_traces[name]
     prep = pk.preprocessed_by_name.get(name)
+    port_prep = port_pk.preprocessed_by_name.get(name)
+    assert (prep is None) == (port_prep is None)
+    assert prep is None or np.array_equal(prep, port_prep)
     challenges = (rand_f(4), rand_f(4))
 
     fl = TraceFolder(prep, trace, pv)
@@ -148,7 +204,7 @@ def test_mips_chip_matches_host_folders(mips_shard, name):
         fl.sends, fl.receives, trace.shape[0], challenges, chip.batch_size
     )
     got, cum = tfolder.perm_trace(
-        chip, t(trace), None if prep is None else t(prep), pv,
+        port_chip, t(port_trace), None if port_prep is None else t(port_prep), pv,
         t(challenges[0]), t(challenges[1]),
     )
     assert np.array_equal(h(got), perm.reshape(trace.shape[0], -1))
@@ -182,7 +238,7 @@ def test_mips_chip_matches_host_folders(mips_shard, name):
     from ziren_tpu_torch.ops import tpcs
 
     got_q = tfolder.quotient(
-        chip, step, t(prep_q), t(main_q), t(perm_q),
+        port_chip, step, t(prep_q), t(main_q), t(perm_q),
         tfolder.selectors_on_coset(tdom.log_n, tdom.shift, qdom.log_n, qdom.shift, "cpu"),
         pv, tpcs.epowers_rev(t(alpha), chip.num_constraints + 5),
         (t(challenges[0]), t(challenges[1])), t(cumsum), gsum,

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels (ziren_tpu_torch.kernels) and their routing.
 
 The wrapper checks and the routing run everywhere. The kernel cases, marked
-`cuda`, need a CUDA device: they hold K1/K2 against the plain PyTorch
-versions bit for bit and skip on a machine without one. This file imports
+`cuda`, need a CUDA device: they hold K1, K2 (both variants) and K3 against
+the plain PyTorch versions bit for bit and skip on a machine without one. This file imports
 no JAX, so the kernel cases also run on the card:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
@@ -45,6 +45,8 @@ def test_wrappers_reject_non_cuda(bad):
         kernels.hash_rows(bad)
     with pytest.raises(ValueError):
         kernels.permute(bad)
+    with pytest.raises(ValueError):
+        kernels.compress_levels(bad, {})
 
 
 def test_router_rejects_other_devices():
@@ -62,14 +64,22 @@ def test_no_cpu_path_without_cuda():
         require_cuda()
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        resolve_device(None)  # the default is the GPU, never the CPU
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_constants_header_is_montgomery():
+    """The header holds each round constant in Montgomery form minus p, in
+    constant memory and again in global memory, and names the port's file."""
     text = kernels.constants_header()
-    first = int(text.split("ZT_RC_MONT[30][16] = {\n  {")[1].split("u")[0])
-    assert first == (int(hp2.RC[0, 0]) << 32) % F.P_INT
-    assert "ZT_DIAG_MONT[16]" in text
+    for table in ("ZT_RC_BIAS[30][16] = {\n  {", "ZT_RC_BIAS_G[30][16] = {\n  {"):
+        first = int(text.split(table)[1].split(",")[0])
+        assert first == (int(hp2.RC[0, 0]) << 32) % F.P_INT - F.P_INT
+    assert "ziren_tpu_torch/core/poseidon2.py" in text.splitlines()[0]
+    # and the two size limits, which the kernels state nowhere else
+    assert f"ZT_PERMUTE_LANES_MAX = {kernels.PERMUTE_LANES_MAX_STATES};" in text
+    assert f"ZT_LEVEL_MAX = {kernels.LEVELS_MAX_HEIGHT};" in text
 
 
 @pytest.mark.cuda
@@ -92,6 +102,34 @@ def test_k2_matches_plain_and_host(cuda, m):
     got = kernels.permute(states)
     assert torch.equal(got, tp2.permute_plain(states))
     assert np.array_equal(tf.to_host(got), hp2.permute(states_np))
+    for lanes in (False, True):  # both variants, whatever m would choose
+        assert torch.equal(kernels.permute_variant(states, lanes), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,heights", [(2, []), (2, [1]), (64, [16, 2]), (256, []), (256, [128, 8, 1])])
+def test_k3_matches_plain(cuda, h, heights):
+    cur = tf.from_host(rand((h, 8), h), cuda)
+    inj = {hh: tf.from_host(rand((hh, 8), hh + 1), cuda) for hh in heights}
+    before = kernels.LAUNCHES["compress_levels"]
+    got = kernels.compress_levels(cur, inj)
+    assert kernels.LAUNCHES["compress_levels"] == before + 1
+    want = tp2.compress_levels_plain(cur, inj)
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_k3_rejects_bad_heights(cuda):
+    with pytest.raises(ValueError):
+        kernels.compress_levels(tf.from_host(rand((512, 8), 1), cuda), {})
+    with pytest.raises(ValueError):
+        kernels.compress_levels(tf.from_host(rand((96, 8), 1), cuda), {})
+    cur = tf.from_host(rand((64, 8), 1), cuda)
+    with pytest.raises(ValueError):
+        kernels.compress_levels(cur, {64: cur})
+    with pytest.raises(ValueError):
+        kernels.compress_levels(cur, {16: cur[:8]})
 
 
 @pytest.mark.cuda

@@ -1,21 +1,30 @@
-"""ziren_tpu_torch: the device shard prover of `ziren_tpu`, in PyTorch.
+"""ziren_tpu_torch: the zkVM shard prover of `ziren_tpu`, in PyTorch.
 
 The port proves MIPS shards on an NVIDIA GPU with the same protocol as the
-JAX package, and its proofs are bit-identical to the host prover's
-(`ziren_tpu.stark.prover.prove_shard`). It shares every host layer with
-`ziren_tpu` (executor, machine, trace generation, shapes, proof types,
-verifier) and ports only the device layer:
+JAX package, and its proofs are bit-identical to the host prover's. It
+stands alone: it imports torch and numpy, never JAX and never `ziren_tpu`.
+The host layers are its own copies of the JAX package's files, with only
+the imports rewritten; the device layers are ported:
 
+  core/, executor/, machine/    copies: field, Poseidon2, executor, the
+                                MIPS machine and its chips
+  stark/{chip,config,domain,folder,lookup,opts,pcs,permutation,proof,
+         prover,serialize,shape,verifier}.py
+                                copies: the host STARK prover and verifier
+  stark/machine.py     StarkMachine (copy) and prove(machine, pk, records,
+                       device=None): None is the GPU, "cpu" the plain versions
+  stark/carry.py       prover state in and out as numpy arrays and bytes
   ops/tfield.py        KoalaBear + ext4 arithmetic on canonical int64 tensors
-  ops/tposeidon2.py    Poseidon2 permutation / sponge / compress
+  ops/tposeidon2.py    Poseidon2 permutation / sponge / compress / tree levels
   ops/tchallenger.py   duplex challenger + proof-of-work grind on device
   ops/tpcs.py          coset LDE, Merkle MMCS, opening contractions, FRI fold
   stark/tfolder.py     LogUp permutation-trace and quotient folders
   stark/tprover.py     the per-shard device prover and proof assembly
-  stark/machine.py     prove(machine, pk, records, device=...)
-  kernels.py           the hand-written CUDA kernels (csrc/poseidon2.cu)
+  kernels.py           the hand-written CUDA kernels (csrc/poseidon2.cu):
+                       K1 hash_rows, K2 permute, K3 compress_levels
+  tools/kernel_bench.py  checks and times the kernels on a GPU
 
 Field elements are canonical int64 values in [0, p). Every function takes
-its device from its tensor arguments or an explicit `device` argument;
-there is no global backend switch. The package never imports JAX.
+its device from its tensor arguments or a `device` argument whose default
+is the GPU; there is no global backend switch.
 """

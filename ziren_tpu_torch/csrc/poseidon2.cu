@@ -1,6 +1,6 @@
-// Poseidon2-KoalaBear-16 on Hopper (sm_90a): the leaf-hash sponge and the
-// bare permutation, with a plain C interface loaded through ctypes by
-// ziren_tpu_torch/kernels.py.
+// Poseidon2-KoalaBear-16 on Hopper (sm_90a): the leaf-hash sponge, the bare
+// permutation and the upper levels of a Merkle tree, with a plain C
+// interface loaded through ctypes by ziren_tpu_torch/kernels.py.
 //
 // K1 zt_hash_rows replaces the Pallas TPU kernel hash_rows_pallas
 // (ziren_tpu/ops/jposeidon2.py:235): the padding-free sponge over each row
@@ -10,136 +10,342 @@
 // K2 zt_permute runs the same permutation on (m, 16) states. It takes the
 // place of the XLA-lowered jposeidon2.permute (:97) behind compress_pairs,
 // the Merkle level compressions, the challenger duplex and the PoW grind.
+// K3 zt_compress_levels takes the (h, 8) digests of one Merkle level,
+// h <= 256, and writes every level below it down to the root in one
+// launch (the loop of ops/tpcs.py:merkle_levels, jpcs._merkle_levels in the
+// JAX package), compressing in the digests of shorter matrices where a
+// level has them.
 //
-// What bounds it: integer multiplies. One permutation is 490 Montgomery
-// products (8 external rounds x 16 S-boxes x 2, 13 internal rounds x
-// (2 + 16 diagonal terms)), each about four 32-bit multiply instructions,
-// and a row of width w takes ceil(w / 8) permutations; the row's bytes are
-// read once. Design: one thread per row (K1) or per state (K2); the 16-word
-// state stays in registers, every round is unrolled so the round constants
-// are constant-bank operands, and arithmetic is Montgomery form (R = 2^32)
-// with __umulhi, entered and left once per absorbed word. Row-major loads
-// are strided across the threads of a warp; staging tiles through shared
-// memory for coalesced loads is left for later work.
+// What bounds them: 32-bit integer instructions. The permutation is 490
+// field products and about 1,200 field additions, all on the int32 pipe;
+// a row of width w takes ceil(w / 8) permutations and its bytes are read
+// once. What the design does about it:
+//   * products are signed Montgomery products (R = 2^32): five
+//     instructions, operands and result in (-p, p), no final correction;
+//   * the 16 diagonal products of an internal round are not products: the
+//     diagonal is (-2, 1, 2, 1/2, 3, 4, -1/2, -3, -4, 1/2^8, 1/8, 1/2^24,
+//     -1/2^8, -1/8, -1/16, -1/2^24), and x / 2^k = (x >> k) - (x mod 2^k) *
+//     127 * 2^(24-k) mod p because 2^k * 127 * 2^(24-k) = p - 1;
+//   * sums are taken wide and reduced once: the linear layers and
+//     diag * s + sum(s) accumulate in 64 bits and fold at bit 31 with
+//     2^31 = 2^24 - 1 mod p into a word below 2p ("lazy"); a word is brought
+//     below p only where an S-box reads it;
+//   * M_E is M4 applied to (block + sum of the four blocks), which is the
+//     same 72 additions with one 64-bit offset that keeps signed inputs
+//     positive;
+//   * K1 stages 128-row x 16-word tiles through shared memory with
+//     cp.async, double-buffered, so a warp reads whole 128-byte row
+//     segments; words enter Montgomery form as they leave shared memory;
+//   * K2 has two variants: one thread a state for large m, and 16 lanes a
+//     state (one word a lane, the linear layers through warp shuffles) for
+//     small m, where the card would stand empty and one permutation would
+//     be a chain of 490 dependent products. K3 uses the 16-lane form with
+//     the level in shared memory.
 //
 // Tensors are canonical int64 in [0, p) on both sides.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "poseidon2_constants.h"  // ZT_RC_MONT[30][16], ZT_DIAG_MONT[16]
+// ZT_RC_BIAS[30][16] (__constant__) and ZT_RC_BIAS_G[30][16] (__device__):
+// the round constants in Montgomery form minus p, as int32 in (-p, 0];
+// ZT_PERMUTE_LANES_MAX, the most states K2 spreads over 16 lanes each, and
+// ZT_LEVEL_MAX, the tallest level K3 takes.
+#include "poseidon2_constants.h"
 
 namespace {
 
-constexpr uint32_t P = 2130706433u;   // 2^31 - 2^24 + 1
-constexpr uint32_t MU = 2130706431u;  // -p^-1 mod 2^32
-constexpr uint32_t R2 = 402124772u;   // 2^64 mod p
-constexpr int THREADS = 128;
+constexpr uint32_t P = 2130706433u;     // 2^31 - 2^24 + 1
+constexpr uint32_t PINV = 2164260865u;  // p^-1 mod 2^32
+constexpr uint32_t MU = 2130706431u;    // -p^-1 mod 2^32
+constexpr int32_t R2 = 402124772;       // 2^64 mod p
+constexpr uint64_t P64 = P;
 
-__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b) {
-  const uint64_t prod = static_cast<uint64_t>(a) * b;
-  const uint32_t lo = static_cast<uint32_t>(prod);
-  const uint32_t hi = static_cast<uint32_t>(prod >> 32);
-  const uint32_t m = lo * MU;
-  const uint32_t t = hi + __umulhi(m, P) + (lo != 0u);  // < 2p < 2^32
-  return t >= P ? t - P : t;
+constexpr int THREADS = 128;  // a block of K1 and of both K2 variants
+
+// The round loops stay rolled: three loop bodies (external, internal,
+// external) fit the instruction cache, where 21 unrolled rounds do not, and
+// ptxas takes seconds (with all 21 rounds unrolled into one block of 64-bit
+// arithmetic it did not finish in ten minutes). The round constants are
+// then indexed loads from constant memory at an address the warp shares.
+#define ZT_ROUNDS _Pragma("unroll 1")
+
+// Signed Montgomery product: |a * b| < 2^31 p, result in (-p, p).
+__device__ __forceinline__ int32_t smont(int32_t a, int32_t b) {
+  const int64_t t = static_cast<int64_t>(a) * b;
+  const uint32_t m = static_cast<uint32_t>(t) * PINV;
+  return static_cast<int32_t>(t >> 32) -
+         __mulhi(static_cast<int32_t>(m), static_cast<int32_t>(P));
 }
 
-__device__ __forceinline__ uint32_t madd(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;
-  return s >= P ? s - P : s;
+// [0, 2p) -> [0, p).
+__device__ __forceinline__ uint32_t fix(uint32_t w) { return min(w, w - P); }
+
+// v < 124 * 2^31 -> a lazy word congruent to v, below 2^31 + (v >> 31) 2^24.
+__device__ __forceinline__ uint32_t red(uint64_t v) {
+  return static_cast<uint32_t>(v >> 31) * 16777215u +
+         (static_cast<uint32_t>(v) & 0x7fffffffu);
 }
 
+// canonical int64 -> lazy Montgomery word in (0, 2p)
 __device__ __forceinline__ uint32_t to_mont(int64_t x) {
-  return mont_mul(static_cast<uint32_t>(x), R2);
+  return static_cast<uint32_t>(smont(static_cast<int32_t>(x), R2) +
+                               static_cast<int32_t>(P));
 }
 
-__device__ __forceinline__ int64_t from_mont(uint32_t x) {
-  return static_cast<int64_t>(mont_mul(x, 1u));
+// any 32-bit Montgomery word -> canonical int64
+__device__ __forceinline__ int64_t from_mont(uint32_t w) {
+  const uint32_t t = __umulhi(w * MU, P) + (w != 0u);  // <= p
+  return static_cast<int64_t>(fix(t));
 }
 
-__device__ __forceinline__ uint32_t sbox(uint32_t x) {
-  return mont_mul(mont_mul(x, x), x);
+// (lazy word + round constant)^3, in (-p, p); rc_bias = rc - p.
+__device__ __forceinline__ int32_t sbox_rc(uint32_t w, int32_t rc_bias) {
+  const int32_t x = static_cast<int32_t>(fix(w)) + rc_bias;
+  return smont(smont(x, x), x);
 }
 
-// M_E: the M4 circulant [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]] on each
-// block of four, then each position adds the sum of that position over the
-// four blocks.
-__device__ __forceinline__ void external_linear_layer(uint32_t s[16]) {
-#pragma unroll
-  for (int j = 0; j < 16; j += 4) {
-    const uint32_t x0 = s[j], x1 = s[j + 1], x2 = s[j + 2], x3 = s[j + 3];
-    const uint32_t t01 = madd(x0, x1);
-    const uint32_t t23 = madd(x2, x3);
-    const uint32_t t0123 = madd(t01, t23);
-    const uint32_t t01123 = madd(t0123, x1);
-    const uint32_t t01233 = madd(t0123, x3);
-    s[j + 0] = madd(t01123, t01);
-    s[j + 1] = madd(t01123, madd(x2, x2));
-    s[j + 2] = madd(t01233, t23);
-    s[j + 3] = madd(t01233, madd(x0, x0));
-  }
+// M_E on 16 words, signed in (-p, p) with offset 5p or unsigned below 2^32
+// with offset 0: c = offset + the sum of the four blocks, y = block + c,
+// out = M4 y with M4 the circulant (2 3 1 1). Sums stay below 70 * 2^32.
+template <typename T>
+__device__ __forceinline__ void external_linear(const T x[16], uint32_t s[16],
+                                                int64_t offset) {
+  int64_t c[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const uint32_t sum = madd(madd(s[k], s[k + 4]), madd(s[k + 8], s[k + 12]));
-    s[k] = madd(s[k], sum);
-    s[k + 4] = madd(s[k + 4], sum);
-    s[k + 8] = madd(s[k + 8], sum);
-    s[k + 12] = madd(s[k + 12], sum);
+    c[k] = offset + static_cast<int64_t>(x[k]) + static_cast<int64_t>(x[k + 4]) +
+           static_cast<int64_t>(x[k + 8]) + static_cast<int64_t>(x[k + 12]);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; j += 4) {
+    const int64_t y0 = c[0] + static_cast<int64_t>(x[j]);
+    const int64_t y1 = c[1] + static_cast<int64_t>(x[j + 1]);
+    const int64_t y2 = c[2] + static_cast<int64_t>(x[j + 2]);
+    const int64_t y3 = c[3] + static_cast<int64_t>(x[j + 3]);
+    const int64_t t01 = y0 + y1;
+    const int64_t t23 = y2 + y3;
+    const int64_t t0123 = t01 + t23;
+    const int64_t t01123 = t0123 + y1;
+    const int64_t t01233 = t0123 + y3;
+    s[j + 0] = red(static_cast<uint64_t>(t01123 + t01));
+    s[j + 1] = red(static_cast<uint64_t>(t01123 + 2 * y2));
+    s[j + 2] = red(static_cast<uint64_t>(t01233 + t23));
+    s[j + 3] = red(static_cast<uint64_t>(t01233 + 2 * y0));
   }
 }
 
 __device__ __forceinline__ void external_round(uint32_t s[16], int r) {
+  int32_t x[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) s[i] = sbox(madd(s[i], ZT_RC_MONT[r][i]));
-  external_linear_layer(s);
+  for (int i = 0; i < 16; ++i) x[i] = sbox_rc(s[i], ZT_RC_BIAS[r][i]);
+  external_linear<int32_t>(x, s, static_cast<int64_t>(5 * P64));
 }
 
-// Rounds: the initial linear layer, 4 external, 13 internal (S-box on word
-// 0, then s_i <- diag_i * s_i + sum(s)), 4 external.
+// s / 2^K (or its negative) plus t, for a 32-bit s.
+template <int K, bool NEG>
+__device__ __forceinline__ uint32_t diag_shift(uint64_t t, uint32_t s) {
+  const uint64_t hi = s >> K;
+  const uint64_t a = static_cast<uint64_t>(s & ((1u << K) - 1u)) * (127u << (24 - K));
+  return red(NEG ? t - hi + a : t + hi - a);
+}
+
+// S-box on word 0, then s_i <- diag_i s_i + sum(s). Words stay lazy; the
+// offset 9p keeps every 64-bit sum positive (4 * 2^32 < 9p).
+__device__ __forceinline__ void internal_round(uint32_t s[16], int r) {
+  s[0] = static_cast<uint32_t>(sbox_rc(s[0], ZT_RC_BIAS[r][0]) + static_cast<int32_t>(P));
+  uint64_t t = 9 * P64;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) t += s[i];
+  const uint64_t s0 = s[0], s2 = s[2], s4 = s[4], s5 = s[5], s7 = s[7], s8 = s[8];
+  s[0] = red(t - 2 * s0);
+  s[1] = red(t + s[1]);
+  s[2] = red(t + 2 * s2);
+  s[3] = diag_shift<1, false>(t, s[3]);
+  s[4] = red(t + 3 * s4);
+  s[5] = red(t + 4 * s5);
+  s[6] = diag_shift<1, true>(t, s[6]);
+  s[7] = red(t - 3 * s7);
+  s[8] = red(t - 4 * s8);
+  s[9] = diag_shift<8, false>(t, s[9]);
+  s[10] = diag_shift<3, false>(t, s[10]);
+  s[11] = diag_shift<24, false>(t, s[11]);
+  s[12] = diag_shift<8, true>(t, s[12]);
+  s[13] = diag_shift<3, true>(t, s[13]);
+  s[14] = diag_shift<4, true>(t, s[14]);
+  s[15] = diag_shift<24, true>(t, s[15]);
+}
+
+// Lazy words in, lazy words out. Rounds: the initial linear layer, 4
+// external, 13 internal, 4 external.
 __device__ __forceinline__ void permute16(uint32_t s[16]) {
-  external_linear_layer(s);
+  {
+    uint32_t x[16];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) external_round(s, r);
-#pragma unroll
-  for (int r = 4; r < 17; ++r) {
-    s[0] = sbox(madd(s[0], ZT_RC_MONT[r][0]));
-    uint32_t total = s[0];
-#pragma unroll
-    for (int i = 1; i < 16; ++i) total = madd(total, s[i]);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = madd(mont_mul(s[i], ZT_DIAG_MONT[i]), total);
+    for (int i = 0; i < 16; ++i) x[i] = s[i];
+    external_linear<uint32_t>(x, s, 0);
   }
-#pragma unroll
+  ZT_ROUNDS
+  for (int r = 0; r < 4; ++r) external_round(s, r);
+  ZT_ROUNDS
+  for (int r = 4; r < 17; ++r) internal_round(s, r);
+  ZT_ROUNDS
   for (int r = 17; r < 21; ++r) external_round(s, r);
 }
 
-// K1: one thread per row. Each chunk of up to 8 words overwrites the state
-// prefix and is followed by a permutation (a partial last chunk keeps the
-// state words past its end). A row of width 0 hashes to zeros.
+// ---------------------------------------------------------------------------
+// 16 lanes a state: lane i of each 16-lane group holds word i.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// diag_i s = sign_i (A_i (s >> k_i) - (s mod 2^k_i) C_i)
+__device__ const uint32_t DIAG_K[16] = {0, 0, 0, 1, 0, 0, 1, 0, 0, 8, 3, 24, 8, 3, 4, 24};
+__device__ const uint32_t DIAG_A[16] = {2, 1, 2, 1, 3, 4, 1, 3, 4, 1, 1, 1, 1, 1, 1, 1};
+__device__ const int32_t DIAG_SIGN[16] = {-1, 1, 1, 1, 1, 1, -1, -1, -1, 1, 1, 1, -1, -1, -1, -1};
+
+struct Lane {
+  int lane;        // 0..15
+  int32_t rc[8];   // this lane's biased constants of the 8 external rounds
+  uint32_t k, mask, a, c;
+  int64_t sign;
+};
+
+__device__ __forceinline__ Lane make_lane(int lane) {
+  Lane l;
+  l.lane = lane;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    l.rc[r] = ZT_RC_BIAS_G[r][lane];
+    l.rc[4 + r] = ZT_RC_BIAS_G[17 + r][lane];
+  }
+  l.k = DIAG_K[lane];
+  l.mask = (1u << l.k) - 1u;
+  l.a = DIAG_A[lane];
+  l.c = l.k ? (127u << (24 - l.k)) : 0u;
+  l.sign = DIAG_SIGN[lane];
+  return l;
+}
+
+// M_E across the 16 lanes of a group; xu is this lane's word, below 2^32.
+__device__ __forceinline__ uint32_t coop_linear(uint32_t xu, int lane) {
+  const int base = lane & 12, k = lane & 3;
+  const uint64_t a = __shfl_sync(FULL, xu, base | ((k + 1) & 3), 16);
+  const uint64_t b = __shfl_sync(FULL, xu, base | ((k + 2) & 3), 16);
+  const uint64_t c = __shfl_sync(FULL, xu, base | ((k + 3) & 3), 16);
+  const uint32_t z = red(2 * static_cast<uint64_t>(xu) + 3 * a + b + c);
+  const uint64_t z1 = __shfl_xor_sync(FULL, z, 4, 16);
+  const uint64_t z2 = __shfl_xor_sync(FULL, z, 8, 16);
+  const uint64_t z3 = __shfl_xor_sync(FULL, z, 12, 16);
+  return red(2 * static_cast<uint64_t>(z) + z1 + z2 + z3);
+}
+
+// The permutation with one lazy word a lane; every lane of the warp calls it.
+__device__ __forceinline__ uint32_t permute_coop(uint32_t s, const Lane& l) {
+  s = coop_linear(s, l.lane);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    s = coop_linear(static_cast<uint32_t>(sbox_rc(s, l.rc[r]) + static_cast<int32_t>(P)), l.lane);
+  }
+#pragma unroll 1
+  for (int r = 4; r < 17; ++r) {
+    // the sum of words 1..15 does not wait for the S-box of word 0
+    uint64_t t = l.lane == 0 ? 0u : s;
+#pragma unroll
+    for (int d = 1; d < 16; d <<= 1) t += __shfl_xor_sync(FULL, t, d, 16);
+    const uint32_t boxed =
+        static_cast<uint32_t>(sbox_rc(s, ZT_RC_BIAS[r][0]) + static_cast<int32_t>(P));
+    t += __shfl_sync(FULL, boxed, 0, 16);
+    if (l.lane == 0) s = boxed;
+    const int64_t hi = s >> l.k;
+    const int64_t lo = s & l.mask;
+    const int64_t term = l.sign * (static_cast<int64_t>(l.a) * hi - lo * static_cast<int64_t>(l.c));
+    s = red(static_cast<uint64_t>(static_cast<int64_t>(t + 9 * P64) + term));
+  }
+#pragma unroll
+  for (int r = 4; r < 8; ++r) {
+    s = coop_linear(static_cast<uint32_t>(sbox_rc(s, l.rc[r]) + static_cast<int32_t>(P)), l.lane);
+  }
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// kernels
+// ---------------------------------------------------------------------------
+
+constexpr int TILE_W = 16;         // words a row in one staged tile: 128 bytes
+constexpr int PITCH = TILE_W + 1;  // shared-memory row pitch in words: odd, so
+                                   // the 8-byte reads of a half-warp hit
+                                   // distinct banks
+
+__device__ __forceinline__ void cp_async8(const int64_t* smem, const int64_t* gmem) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sa), "l"(gmem) : "memory");
+}
+
+// K1: one thread a row, 128 rows a block. Tiles of 16 words a row are
+// copied to shared memory by the whole block (16 lanes a row segment) one
+// tile ahead of the permutations that absorb them. Each chunk of up to 8
+// words overwrites the state prefix and is followed by a permutation (a
+// partial last chunk keeps the state words past its end). A row of width 0
+// hashes to zeros.
 __global__ void __launch_bounds__(THREADS)
 hash_rows_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
                  int64_t n, int64_t w) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (row >= n) return;
-  const int64_t* src = in + row * w;
+  __shared__ int64_t tile[2][THREADS * PITCH];
+  const int tid = threadIdx.x;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * THREADS;
+  const int64_t row = row0 + tid;
+  const int64_t tiles = (w + TILE_W - 1) / TILE_W;
+
+  auto stage = [&](int64_t t) {
+    int64_t* dst = tile[t & 1];
+    const int64_t col = t * TILE_W + (tid & (TILE_W - 1));
+#pragma unroll
+    for (int pass = 0; pass < TILE_W; ++pass) {
+      const int r = pass * (THREADS / TILE_W) + (tid / TILE_W);
+      if (row0 + r < n && col < w) {
+        cp_async8(dst + r * PITCH + (tid & (TILE_W - 1)), in + (row0 + r) * w + col);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
   uint32_t s[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) s[i] = 0u;
-  for (int64_t c = 0; c < w; c += 8) {
-    const int64_t take = w - c < 8 ? w - c : 8;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i < take) s[i] = to_mont(src[c + i]);
+  if (tiles > 0) stage(0);
+  for (int64_t t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      stage(t + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
-    permute16(s);
-  }
-  int64_t* dst = out + row * 8;
+    __syncthreads();
+    if (row < n) {
+      const int64_t* src = tile[t & 1] + tid * PITCH;
+#pragma unroll 1
+      for (int64_t c = t * TILE_W; c < w && c < (t + 1) * TILE_W; c += 8) {
+        const int64_t take = w - c < 8 ? w - c : 8;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) dst[i] = from_mont(s[i]);
+        for (int i = 0; i < 8; ++i) {
+          if (i < take) s[i] = to_mont(src[i]);
+        }
+        src += 8;
+        permute16(s);
+      }
+    }
+    __syncthreads();
+  }
+  if (row < n) {
+    int64_t* dst = out + row * 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[i] = from_mont(s[i]);
+  }
 }
 
-// K2: one thread per 16-word state.
+// K2, large m: one thread a 16-word state.
 __global__ void __launch_bounds__(THREADS)
 permute_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
                int64_t m) {
@@ -155,14 +361,80 @@ permute_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
   for (int i = 0; i < 16; ++i) dst[i] = from_mont(s[i]);
 }
 
-unsigned int grid_for(long long rows) {
-  return static_cast<unsigned int>((rows + THREADS - 1) / THREADS);
+// K2, small m: 16 lanes a state, two states a warp. Lanes past the last
+// state run on zeros and store nothing.
+__global__ void __launch_bounds__(THREADS)
+permute_coop_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+                    int64_t m) {
+  const int64_t gid = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  const bool live = (gid >> 4) < m;
+  const Lane l = make_lane(static_cast<int>(gid & 15));
+  const uint32_t s = permute_coop(to_mont(live ? in[gid] : 0), l);
+  if (live) out[gid] = from_mont(s);
+}
+
+// K3: one block; the level lives in shared memory as lazy Montgomery
+// words and is halved in place. Each 16-lane group compresses one pair a
+// batch (read, barrier, permute, write); a level with injected digests
+// takes a second permutation of (compressed || injected) before the write.
+// A warp whose two groups have no pair in a batch skips the permutation.
+// inj.p[k] points to the (2^k, 8) digests injected into the level of
+// height 2^k, or is null where that level has none. `out` receives the
+// levels h/2, h/4, ..., 1 one after the other.
+constexpr int LEVEL_THREADS = 1024;
+constexpr int LEVEL_MAX = ZT_LEVEL_MAX;
+constexpr int INJ_LEVELS = 8;  // injected heights 1 .. 128
+static_assert(LEVEL_MAX <= (1 << INJ_LEVELS), "an injected level is below LEVEL_MAX");
+
+struct Injected {
+  const int64_t* p[INJ_LEVELS];
+};
+
+__global__ void __launch_bounds__(LEVEL_THREADS)
+compress_levels_kernel(const int64_t* __restrict__ in, const Injected inj,
+                       int64_t* __restrict__ out, int h) {
+  __shared__ uint32_t cur[LEVEL_MAX * 8];
+  const int tid = threadIdx.x;
+  const int group = tid >> 4;
+  const Lane l = make_lane(tid & 15);
+  for (int i = tid; i < h * 8; i += LEVEL_THREADS) cur[i] = to_mont(in[i]);
+  __syncthreads();
+  int64_t out_off = 0;
+  for (int hh = h >> 1; hh >= 1; hh >>= 1) {
+    const int64_t* injected = nullptr;
+#pragma unroll
+    for (int k = 0; k < INJ_LEVELS; ++k) {
+      if (hh == (1 << k)) injected = inj.p[k];
+    }
+    for (int j0 = 0; j0 < hh; j0 += LEVEL_THREADS / 16) {
+      const int j = j0 + group;
+      const bool live = j < hh;
+      uint32_t s = live ? cur[16 * j + l.lane] : 0u;
+      __syncthreads();
+      if (j0 + 2 * (tid >> 5) >= hh) continue;  // a warp with no pair left
+      s = permute_coop(s, l);
+      if (injected) {
+        if (l.lane >= 8) s = to_mont(live ? injected[j * 8 + (l.lane - 8)] : 0);
+        s = permute_coop(s, l);
+      }
+      if (live && l.lane < 8) {
+        cur[8 * j + l.lane] = s;
+        out[(out_off + j) * 8 + l.lane] = from_mont(s);
+      }
+    }
+    __syncthreads();
+    out_off += hh;
+  }
+}
+
+unsigned int grid_for(long long threads) {
+  return static_cast<unsigned int>((threads + THREADS - 1) / THREADS);
 }
 
 }  // namespace
 
-// Both entry points launch on `stream`, do not synchronise, and return the
-// cudaGetLastError() code of the launch (0 on success).
+// Every entry point launches on `stream`, does not synchronise, and returns
+// the cudaGetLastError() code of the launch (0 on success).
 extern "C" int zt_hash_rows(const void* in, void* out, long long n,
                             long long w, void* stream) {
   if (n <= 0) return 0;
@@ -171,9 +443,41 @@ extern "C" int zt_hash_rows(const void* in, void* out, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int zt_permute(const void* in, void* out, long long m, void* stream) {
+// The two variants of K2 by name, for holding one against the other; the
+// prover calls zt_permute.
+extern "C" int zt_permute_lanes(const void* in, void* out, long long m, void* stream) {
+  if (m <= 0) return 0;
+  permute_coop_kernel<<<grid_for(16 * m), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(in), static_cast<int64_t*>(out), m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int zt_permute_thread(const void* in, void* out, long long m, void* stream) {
   if (m <= 0) return 0;
   permute_kernel<<<grid_for(m), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(in), static_cast<int64_t*>(out), m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16 lanes a state up to ZT_PERMUTE_LANES_MAX states, one thread a state
+// above. (Measured on an H100: the 16-lane variant wins up to 8,192 states
+// and loses from 16,384.)
+extern "C" int zt_permute(const void* in, void* out, long long m, void* stream) {
+  return m <= ZT_PERMUTE_LANES_MAX ? zt_permute_lanes(in, out, m, stream)
+                                   : zt_permute_thread(in, out, m, stream);
+}
+
+// h a power of two, 2 <= h <= ZT_LEVEL_MAX; returns -1 for any other h.
+// `inj` is a host array of INJ_LEVELS device pointers: inj[k] the digests
+// injected at height 2^k, or null. (Measured on an H100: from 512 digests
+// up, one K2 launch a level is as fast or faster than this one block, whose
+// SM then has every warp busy.)
+extern "C" int zt_compress_levels(const void* in, const void* const* inj, void* out,
+                                  int h, void* stream) {
+  if (h < 2 || h > LEVEL_MAX || (h & (h - 1))) return -1;
+  Injected levels;
+  for (int k = 0; k < INJ_LEVELS; ++k) levels.p[k] = static_cast<const int64_t*>(inj[k]);
+  compress_levels_kernel<<<1, LEVEL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(in), levels, static_cast<int64_t*>(out), h);
   return static_cast<int>(cudaGetLastError());
 }

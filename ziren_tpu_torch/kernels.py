@@ -3,14 +3,15 @@
 csrc/poseidon2.cu is compiled with nvcc for sm_90a into a shared library
 with a plain C interface, loaded with ctypes. The build happens at first
 use, into `ziren_tpu_torch/_build/`, cached by a hash of the sources and
-flags. The Poseidon2 round constants come from `ziren_tpu.core.poseidon2`
+flags. The Poseidon2 round constants come from the port's `core/poseidon2.py`
 through a header generated into the build directory.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with torch.empty, launches on PyTorch's current stream without
 synchronising, raises if the launch reports an error, and adds one to its
-entry in `LAUNCHES`. There is no fallback: callers route CPU tensors to the
-plain versions in `ops/tposeidon2.py` themselves.
+entry in `LAUNCHES` and to its shape's entry in `SHAPES`. There is no
+fallback: callers route CPU tensors to the plain versions in
+`ops/tposeidon2.py` and `ops/tpcs.py` themselves.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ import time
 import numpy as np
 import torch
 
-from ziren_tpu.core import field as F
-from ziren_tpu.core import poseidon2 as hp2
+from .core import field as F
+from .core import poseidon2 as hp2
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -35,11 +36,22 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("poseidon2.cu",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# launches per entry point since the last reset_launches()
-LAUNCHES = {"hash_rows": 0, "permute": 0}
+# The kernels read these two from the generated header. zt_permute spreads
+# a state over 16 lanes up to this many states, and takes one thread a state
+# above it.
+PERMUTE_LANES_MAX_STATES = 8192
+# K3 takes a level of at most this many digests; ops/tpcs.py splits a tree
+# there.
+LEVELS_MAX_HEIGHT = 256
+
+# launches per entry point since the last reset_launches(), and the same
+# by shape: (n, w) for hash_rows, m for permute, (h, injected heights) for
+# compress_levels
+LAUNCHES = {"hash_rows": 0, "permute": 0, "compress_levels": 0}
+SHAPES: dict = {k: {} for k in LAUNCHES}
 
 _LOCK = threading.Lock()
 _LIB: list = []
@@ -48,20 +60,30 @@ _LIB: list = []
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        SHAPES[k].clear()
+
+
+def _count(name: str, shape) -> None:
+    LAUNCHES[name] += 1
+    SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
 
 
 def constants_header() -> str:
-    """C header of the Poseidon2 constants in Montgomery form (R = 2^32)."""
-    mont = lambda a: (a.astype(np.uint64) << np.uint64(32)) % np.uint64(F.P_INT)
-    rows = ",\n".join(
-        "  {" + ", ".join(f"{int(v)}u" for v in row) + "}" for row in mont(hp2.RC)
-    )
-    diag = ", ".join(f"{int(v)}u" for v in mont(hp2.INTERNAL_DIAG))
+    """C header of the Poseidon2 round constants as the kernels add them:
+    Montgomery form (R = 2^32) minus p, int32 in [-p, 0). Twice: in constant
+    memory for indices every thread shares, in global memory for indices
+    that differ by lane. With them, the two size limits above."""
+    mont = (hp2.RC.astype(np.uint64) << np.uint64(32)) % np.uint64(F.P_INT)
+    bias = mont.astype(np.int64) - F.P_INT
+    rows = ",\n".join("  {" + ", ".join(str(int(v)) for v in row) + "}" for row in bias)
+    dims = f"[{hp2.RC.shape[0]}][16]"
     return (
-        "// generated by ziren_tpu_torch/kernels.py from ziren_tpu/core/poseidon2.py\n"
+        "// generated by ziren_tpu_torch/kernels.py from ziren_tpu_torch/core/poseidon2.py\n"
         "#pragma once\n#include <cstdint>\n"
-        f"__constant__ uint32_t ZT_RC_MONT[{hp2.RC.shape[0]}][16] = {{\n{rows}\n}};\n"
-        f"__constant__ uint32_t ZT_DIAG_MONT[16] = {{{diag}}};\n"
+        f"__constant__ int32_t ZT_RC_BIAS{dims} = {{\n{rows}\n}};\n"
+        f"__device__ const int32_t ZT_RC_BIAS_G{dims} = {{\n{rows}\n}};\n"
+        f"constexpr long long ZT_PERMUTE_LANES_MAX = {PERMUTE_LANES_MAX_STATES};\n"
+        f"constexpr int ZT_LEVEL_MAX = {LEVELS_MAX_HEIGHT};\n"
     )
 
 
@@ -100,6 +122,8 @@ def _build(nvcc: str) -> str:
         raise RuntimeError(
             f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr[-4000:]}"
         )
+    with open(lib_path + ".log", "w") as f:  # ptxas -v: registers, spills
+        f.write(res.stderr)
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -109,12 +133,17 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB:
             return _LIB[0]
-        lib = ctypes.CDLL(_build(_nvcc()))
+        path = _build(_nvcc())
+        lib = ctypes.CDLL(path)
+        lib.zt_path = path
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         lib.zt_hash_rows.argtypes = [vp, vp, ll, ll, vp]
         lib.zt_hash_rows.restype = ctypes.c_int
-        lib.zt_permute.argtypes = [vp, vp, ll, vp]
-        lib.zt_permute.restype = ctypes.c_int
+        for fn in (lib.zt_permute, lib.zt_permute_lanes, lib.zt_permute_thread):
+            fn.argtypes = [vp, vp, ll, vp]
+            fn.restype = ctypes.c_int
+        lib.zt_compress_levels.argtypes = [vp, ctypes.POINTER(vp), vp, ctypes.c_int, vp]
+        lib.zt_compress_levels.restype = ctypes.c_int
         _LIB.append(lib)
         return lib
 
@@ -124,6 +153,12 @@ def build() -> float:
     t0 = time.perf_counter()
     load()
     return time.perf_counter() - t0
+
+
+def build_log() -> str:
+    """What ptxas -v said of the loaded library (registers, spills)."""
+    with open(load().zt_path + ".log") as f:
+        return f.read()
 
 
 def _check(x: torch.Tensor, what: str, width: int | None = None) -> None:
@@ -150,29 +185,79 @@ def hash_rows(rows: torch.Tensor) -> torch.Tensor:
     """K1: Poseidon2 sponge over each row, (n, w) int64 -> (n, 8) int64."""
     _check(rows, "hash_rows")
     n, w = rows.shape
-    out = torch.empty((n, 8), dtype=torch.int64, device=rows.device)
-    if n:
-        lib = load()
-        err = lib.zt_hash_rows(
-            ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            n, w, _stream(rows),
-        )
-        _raise_on(err, "hash_rows")
-        LAUNCHES["hash_rows"] += 1
+    with torch.cuda.device(rows.device):
+        out = torch.empty((n, 8), dtype=torch.int64, device=rows.device)
+        if n:
+            err = load().zt_hash_rows(
+                ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                n, w, _stream(rows),
+            )
+            _raise_on(err, "hash_rows")
+            _count("hash_rows", (n, w))
+    return out
+
+
+def _permute(entry: str, states: torch.Tensor) -> torch.Tensor:
+    _check(states, "permute", width=16)
+    m = states.shape[0]
+    with torch.cuda.device(states.device):
+        out = torch.empty_like(states)
+        if m:
+            err = getattr(load(), entry)(
+                ctypes.c_void_p(states.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                m, _stream(states),
+            )
+            _raise_on(err, "permute")
+            _count("permute", m)
     return out
 
 
 def permute(states: torch.Tensor) -> torch.Tensor:
-    """K2: Poseidon2 permutation of each state, (m, 16) -> (m, 16)."""
-    _check(states, "permute", width=16)
-    m = states.shape[0]
-    out = torch.empty_like(states)
-    if m:
-        lib = load()
-        err = lib.zt_permute(
-            ctypes.c_void_p(states.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            m, _stream(states),
+    """K2: Poseidon2 permutation of each state, (m, 16) -> (m, 16). The
+    kernel chooses its variant by m."""
+    return _permute("zt_permute", states)
+
+
+def permute_variant(states: torch.Tensor, lanes: bool) -> torch.Tensor:
+    """One of K2's two variants by name, whatever m would choose: 16 lanes a
+    state, or one thread a state. For holding one against the other; the
+    prover calls `permute`."""
+    return _permute("zt_permute_lanes" if lanes else "zt_permute_thread", states)
+
+
+def compress_levels(digests: torch.Tensor, injected: dict) -> list:
+    """K3: the Merkle levels below `digests`, (h, 8) with h a power of two,
+    2 <= h <= LEVELS_MAX_HEIGHT, down to the root, in one launch. `injected`
+    maps a level's height h' < h to the (h', 8) digests compressed into it.
+    Returns the levels [(h/2, 8), (h/4, 8), ..., (1, 8)] as views of one
+    tensor."""
+    _check(digests, "compress_levels", width=8)
+    h = digests.shape[0]
+    if h < 2 or h > LEVELS_MAX_HEIGHT or h & (h - 1):
+        raise ValueError(f"compress_levels: bad height {h}")
+    # pointers[k]: the digests injected at height 2^k (csrc: INJ_LEVELS = 8)
+    pointers = (ctypes.c_void_p * 8)()
+    for hh, inj in injected.items():
+        _check(inj, "compress_levels (injected)", width=8)
+        if not 1 <= hh < h or hh & (hh - 1) or inj.shape[0] != hh or inj.device != digests.device:
+            raise ValueError(f"compress_levels: bad injected level {hh}: {tuple(inj.shape)}")
+        pointers[hh.bit_length() - 1] = inj.data_ptr()
+    with torch.cuda.device(digests.device):
+        out = torch.empty((h - 1, 8), dtype=torch.int64, device=digests.device)
+        err = load().zt_compress_levels(
+            ctypes.c_void_p(digests.data_ptr()), pointers,
+            ctypes.c_void_p(out.data_ptr()), h, _stream(digests),
         )
-        _raise_on(err, "permute")
-        LAUNCHES["permute"] += 1
-    return out
+        _raise_on(err, "compress_levels")
+        _count("compress_levels", (h, tuple(sorted(injected, reverse=True))))
+    return split_levels(out, h)
+
+
+def split_levels(flat: torch.Tensor, h: int) -> list:
+    """(h - 1, 8) -> [(h/2, 8), (h/4, 8), ..., (1, 8)] views."""
+    levels, off = [], 0
+    while h > 1:
+        h //= 2
+        levels.append(flat[off : off + h])
+        off += h
+    return levels

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ziren_tpu.core import field as F
+from ..core import field as F
 
 P = F.P_INT
 W = 3  # x^4 = W

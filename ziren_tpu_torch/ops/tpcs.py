@@ -1,7 +1,7 @@
 """Device-resident TwoAdicFriPcs pieces on torch tensors (counterpart of
 ops/jpcs.py).
 
-Mirrors the host PCS (ziren_tpu.stark.pcs) with every matrix on the device
+Mirrors the host PCS (stark/pcs.py) with every matrix on the device
 as canonical int64:
 
   * commit: per (height, shift) group INTT -> coset scale/pad -> NTT ->
@@ -21,7 +21,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ziren_tpu.core import field as F
+from .. import kernels
+from ..core import field as F
 from . import tfield as tf
 from . import tposeidon2 as tp2
 
@@ -113,7 +114,10 @@ class DTree:
 
 def merkle_levels(mats_br: list) -> list:
     """Leaf hashes of the tallest matrices (concatenated), then per level a
-    pair compression, with each shorter height's hashed rows injected."""
+    pair compression, with each shorter height's hashed rows injected. The
+    levels above kernels.LEVELS_MAX_HEIGHT digests are one permute call
+    each; the levels from there down to the root are one compress_levels
+    call."""
     heights = sorted({int(m.shape[0]) for m in mats_br}, reverse=True)
 
     def rows_at(h):
@@ -125,13 +129,16 @@ def merkle_levels(mats_br: list) -> list:
     h = heights[0]
     cur = tp2.hash_rows(rows_at(h))
     levels = [cur]
-    while h > 1:
+    while h > kernels.LEVELS_MAX_HEIGHT:
         h //= 2
         cur = tp2.compress_pairs(cur)
         inj = rows_at(h)
         if inj is not None:
             cur = tp2.compress2(cur, tp2.hash_rows(inj))
         levels.append(cur)
+    if h > 1:
+        injected = {hh: tp2.hash_rows(rows_at(hh)) for hh in heights if hh < h}
+        levels += tp2.compress_levels(cur, injected)
     return levels
 
 

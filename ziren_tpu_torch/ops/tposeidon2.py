@@ -1,17 +1,19 @@
 """Poseidon2-KoalaBear-16 on torch tensors (counterpart of ops/jposeidon2.py).
 
-`permute`, `hash_rows` and `compress_pairs` route by the tensor's device:
-a CUDA tensor goes to the hand-written kernels in `ziren_tpu_torch.kernels`
-(csrc/poseidon2.cu), a CPU tensor to the plain PyTorch version below,
-which is also the oracle the kernels are held against on the card. Values
-are canonical int64; bit-identical to `ziren_tpu.core.poseidon2`.
+`permute`, `hash_rows`, `compress_pairs` and `compress_levels` route by the
+tensor's device: a CUDA tensor goes to the hand-written kernels in
+`ziren_tpu_torch.kernels` (csrc/poseidon2.cu), a CPU tensor to the plain
+PyTorch version below, which is also the oracle the kernels are held
+against on the GPU. Values
+are canonical int64; bit-identical to the host numpy version in `core/poseidon2.py`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ziren_tpu.core import poseidon2 as hp2
+from .. import kernels
+from ..core import poseidon2 as hp2
 from . import tfield as tf
 
 WIDTH = 16
@@ -107,8 +109,6 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     """Poseidon2 permutation on (..., 16)."""
     if not _on_cuda(state):
         return permute_plain(state)
-    from ziren_tpu_torch import kernels
-
     return kernels.permute(state.reshape(-1, WIDTH).contiguous()).reshape(state.shape)
 
 
@@ -116,8 +116,6 @@ def hash_rows(rows: torch.Tensor) -> torch.Tensor:
     """PaddingFreeSponge over rows: (n, w) -> (n, 8) digests."""
     if not _on_cuda(rows):
         return hash_rows_plain(rows)
-    from ziren_tpu_torch import kernels
-
     return kernels.hash_rows(rows.contiguous())
 
 
@@ -130,3 +128,25 @@ def compress_pairs(digests: torch.Tensor) -> torch.Tensor:
 def compress2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(k, 8), (k, 8) -> (k, 8): perm(a || b)[:8] row by row."""
     return permute(torch.cat([a, b], dim=1))[:, :OUT]
+
+
+def compress_levels_plain(digests: torch.Tensor, injected: dict) -> list:
+    """The Merkle levels below (h, 8) `digests` down to the root, one pair
+    compression a level; `injected` maps a level's height to the (h', 8)
+    digests compressed into it. Level by level through `permute`."""
+    levels, cur = [], digests
+    while cur.shape[0] > 1:
+        cur = compress_pairs(cur)
+        inj = injected.get(cur.shape[0])
+        if inj is not None:
+            cur = compress2(cur, inj)
+        levels.append(cur)
+    return levels
+
+
+def compress_levels(digests: torch.Tensor, injected: dict) -> list:
+    """As compress_levels_plain, for 2 <= h <= kernels.LEVELS_MAX_HEIGHT: one
+    launch on a CUDA tensor."""
+    if not _on_cuda(digests):
+        return compress_levels_plain(digests, injected)
+    return kernels.compress_levels(digests.contiguous(), injected)

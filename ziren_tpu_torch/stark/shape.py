@@ -1,0 +1,197 @@
+"""Shape system: fixed per-chip trace heights across a batch of shards.
+
+A `Shape` maps chip name -> log2 trace height. `fix_shape(machine, records)`
+computes the batch-wide shape (per-chip max height, optionally rounded up to
+a cluster grid) and regenerates any trace below its target under the
+fixed-height context (machine/layout.py), which routes every height
+computation — including each chip's non-zero padding logic — to the target.
+
+Why shapes (reference: crates/core/machine/src/shape/mod.rs:40-165):
+  * the device prover jit-caches kernels by trace shape — a stable shape
+    set means a finite, warm kernel cache;
+  * shard_map data-parallel proving needs identical shapes on every device;
+  * recursion lift programs are compiled per proof shape — a finite shape
+    set means a finite set of recursion programs and vks.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..machine.layout import fixed_height
+
+
+@dataclass(frozen=True)
+class Shape:
+    """Ordered (chip name, log_height) pairs, tallest first."""
+
+    heights: tuple
+
+    def log_height(self, name: str) -> int:
+        return dict(self.heights)[name]
+
+    def __contains__(self, name):
+        return any(n == name for n, _ in self.heights)
+
+    @property
+    def names(self):
+        return tuple(n for n, _ in self.heights)
+
+
+def emit_synthetic(machine, record):
+    if getattr(record, "_synth_done", False):
+        return
+    for c in machine.chips:
+        if c.air.included(record):
+            c.air.emit_synthetic(record)
+    try:
+        record._synth_done = True
+    except AttributeError:
+        pass
+
+
+def _gen_traces(machine, record):
+    """(chip, trace) pairs for every included chip, dependencies emitted."""
+    chips = [c for c in machine.chips if c.air.included(record)]
+    emit_synthetic(machine, record)
+    if not getattr(record, "_deps_done", False):
+        for c in chips:
+            c.air.generate_dependencies(record, record)
+        try:
+            record._deps_done = True
+        except AttributeError:
+            pass
+    return [(c, c.air.generate_trace(record, record)) for c in chips]
+
+
+def estimate_targets(machine, records, grid: int = 1):
+    """Batch-wide per-chip target heights WITHOUT generating traces — the
+    cost model (reference core/executor/src/cost.rs): every included chip
+    reports its real row count via Air.num_rows. Returns None when any
+    chip cannot (caller falls back to fix_shape). Under-estimates are
+    impossible to miss: trace_height asserts natural <= target."""
+    targets: dict = {}
+    for record in records:
+        emit_synthetic(machine, record)
+        for c in machine.chips:
+            if not c.air.included(record):
+                continue
+            n = c.air.num_rows(record)
+            if n is None:
+                return None
+            log_h = (max(int(n), 4) - 1).bit_length()
+            if c.preprocessed_width == 0:
+                log_h = round_up_cluster(log_h, grid)
+            targets[c.name] = max(targets.get(c.name, 0), 1 << log_h)
+    return targets
+
+
+def estimate_lde_area(machine, record, log_blowup: int = 1) -> int:
+    """Per-AirId prover cost model: total LDE cells (felts) this record's
+    shard proof materializes — main + permutation + quotient columns at
+    padded height << log_blowup (reference: core/executor/src/cost.rs:225
+    estimate_mips_lde_size, executor.rs:161-165). Drives shard-sizing
+    decisions: a precompile-dense shard can be far "taller" than its cycle
+    count suggests, and SplitOpts.deferred is the knob that re-shards it."""
+    emit_synthetic(machine, record)
+    total = 0
+    for c in machine.chips:
+        if not c.air.included(record):
+            continue
+        n = c.air.num_rows(record)
+        if n is None:
+            return -1
+        h = 1 << (max(int(n), 4) - 1).bit_length()
+        cols = c.width + c.preprocessed_width + 4 * c.perm_width \
+            + 4 * c.quotient_degree
+        total += (h << log_blowup) * cols
+    return total
+
+
+def generate_fixed(machine, record, targets):
+    """Generate this record's traces at the target heights and attach
+    them as record._fixed_traces (thread-safe: fixed_height is
+    thread-local)."""
+    chips = [c for c in machine.chips if c.air.included(record)]
+    emit_synthetic(machine, record)
+    if not getattr(record, "_deps_done", False):
+        for c in chips:
+            c.air.generate_dependencies(record, record)
+        try:
+            record._deps_done = True
+        except AttributeError:
+            pass
+    out = []
+    for c in chips:
+        with fixed_height(targets[c.name]):
+            out.append((c, c.air.generate_trace(record, record)))
+    record._fixed_traces = out
+    return out
+
+
+def round_up_cluster(log_h: int, grid: int = 1) -> int:
+    """Round a log-height up to the next multiple of `grid` (cluster rule)."""
+    return ((log_h + grid - 1) // grid) * grid
+
+
+def fix_shape(machine, records, grid: int = 1):
+    """Generate traces for every record at a common per-chip shape.
+
+    Returns (shape, [per-record [(chip, trace)]]). Records may include
+    different chip sets (deferred-event splitting yields cpu-less memory
+    shards); each chip's target is the max over the records that include
+    it. Chips with a preprocessed trace keep their natural height (it is
+    pinned by the vk); others are padded to the per-chip max over the
+    batch, rounded up to the `grid` log-height cluster.
+    """
+    if len(records) > 1:
+        # trace generation is numpy-heavy (releases the GIL): shards
+        # generate concurrently, mirroring the reference's rayon trace
+        # workers (utils/prove.rs TRACE_GEN_WORKERS)
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+
+        workers = min(len(records), os.cpu_count() or 4)
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            per_record = list(
+                pool.map(lambda r: _gen_traces(machine, r), records)
+            )
+    else:
+        per_record = [_gen_traces(machine, r) for r in records]
+    machine_order = {c.name: i for i, c in enumerate(machine.chips)}
+
+    targets = {}
+    for traces in per_record:
+        for c, t in traces:
+            log_h = (t.shape[0] - 1).bit_length()
+            if c.preprocessed_width == 0:
+                log_h = round_up_cluster(log_h, grid)
+            targets[c.name] = max(targets.get(c.name, 0), log_h)
+
+    fixed = []
+    for record, traces in zip(records, per_record):
+        out = []
+        for c, t in traces:
+            want = 1 << targets[c.name]
+            if t.shape[0] != want:
+                assert t.shape[0] < want, (c.name, t.shape[0], want)
+                with fixed_height(want):
+                    t = c.air.generate_trace(record, record)
+                assert t.shape[0] == want, c.name
+            out.append((c, t))
+        fixed.append(out)
+        # the eager prover path reuses these instead of regenerating
+        try:
+            record._fixed_traces = out
+        except AttributeError:
+            pass
+
+    shape = Shape(
+        tuple(
+            sorted(
+                targets.items(),
+                key=lambda kv: (-kv[1], machine_order[kv[0]]),
+            )
+        )
+    )
+    return shape, fixed

@@ -1,7 +1,7 @@
 """Device constraint folders on torch tensors (counterpart of stark/jfolder.py).
 
 The same duck-typed `air.eval(builder)` pass that drives the host folders
-(ziren_tpu/stark/folder.py) runs here with values backed by canonical int64
+(stark/folder.py) runs here with values backed by canonical int64
 tensors. It runs eagerly: each FV operation is one to six tensor ops.
 Constants stay Python ints, so they travel as kernel arguments and need no
 host-to-device copy.
@@ -16,11 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ziren_tpu.core import field as F
-from ziren_tpu.stark.folder import FV, _Builder
-from ziren_tpu.stark.permutation import _local, perm_trace_width
-from ziren_tpu_torch.ops import tfield as tf
-from ziren_tpu_torch.ops import tpcs
+from ..core import field as F
+from ..ops import tfield as tf
+from ..ops import tpcs
+from .folder import FV, _Builder
+from .permutation import _local, perm_trace_width
 
 P = tf.P
 

@@ -14,17 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ziren_tpu.core import field as F
-from ziren_tpu.stark.pcs import FriProof, QueryProof, TwoAdicFriPcs
-from ziren_tpu.stark.proof import (
+from ..core import field as F
+from .pcs import FriProof, QueryProof, TwoAdicFriPcs
+from .proof import (
     AirOpenedValues,
     ChipOpenedValues,
     ShardCommitment,
     ShardProof,
 )
-from ziren_tpu_torch.ops import tfield as tf
-from ziren_tpu_torch.ops import tpcs
-from ziren_tpu_torch.ops.tchallenger import TChallenger
+from ..ops import tfield as tf
+from ..ops import tpcs
+from ..ops.tchallenger import TChallenger
 from . import tfolder
 
 P = tf.P
