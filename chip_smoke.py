@@ -20,7 +20,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      84 queries, 16 PoW bits), shards of 2^16 - 64 cycles, proved through
      ziren_tpu_torch.stark.machine.prove and checked by verify_mips_proof,
      with the kernels' launch counts and launch shapes from that run, then
-     proved twice more for the spread of the rate.
+     proved twice more for the spread of the rate;
+  6. ops/tmerkle.py and ops/tntt.py on the card against the host's
+     core/merkle.py and core/ntt.py, bit-exact: leaf hashes and root of a
+     seeded (2^17, 83) matrix, a fold of digest levels, a coset LDE;
+  7. a small recursion shard: one dev-config lift of the fibonacci(30) shard
+     proof, proved by the port on the card, byte-equal to the host prover's
+     proof of the same record;
+  8. the recursion path at full width: the first RECURSION_SHARDS shard
+     proofs of phase 5's core-config proof are compressed on the card
+     (mips_pipeline.compress: a lift each, then the join tree, under the
+     registry of that tree's own vks in place of the full enumeration, which
+     does not fit in this script's time) and the root is checked
+     (verify_compressed for the whole execution, the recursion machine's
+     verify and is_complete = 0 for a partial range), then shrunk under
+     compressed_config() on the card
+     (pipeline.shrink) and verified. Reports the seconds of every lift and
+     join with their split, of the registry and of shrink, the machines'
+     chips and heights, the kernels' launches and launch shapes on this path
+     (each must be among those phase 3 held), and peak device memory.
 
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. Without CUDA the script fails before any
@@ -55,15 +73,34 @@ K1_SHAPES = [
     (8, 638), (8, 300), (8, 104),
     (131072, 1), (131072, 7), (131072, 23), (131072, 83), (131072, 600), (131072 - 977, 83),
 ]
+# The recursion path (phase 8): a lift, join or shrink machine has ten chips,
+# all preprocessed, from RecFriFold at 2^18-2^19 rows down to RecOutput at 4;
+# K1 hashes the LDEs (twice or four times the rows) of the main, permutation,
+# quotient and preprocessed matrices by height (RecPoseidon2: 368 + 34
+# columns), and the FRI layers from 2^20 rows down.
+K1_RECURSION_SHAPES = [
+    (1048576, 56), (1048576, 25), (1048576, 15), (1048576, 8), (524288, 56), (524288, 25),
+    (524288, 21), (524288, 20), (524288, 16), (524288, 15), (524288, 8), (524288, 7),
+    (262144, 413), (262144, 176), (262144, 90), (262144, 44), (262144, 32), (262144, 26),
+    (262144, 16), (262144, 13), (262144, 12), (262144, 8), (262144, 4), (131072, 416),
+    (131072, 404), (131072, 184), (131072, 152), (131072, 98), (131072, 85), (131072, 40),
+    (131072, 32), (131072, 8), (2048, 24), (2048, 20), (2048, 1), (512, 226), (512, 4),
+    (512, 1), (32, 10), (16, 4), (16, 1), (8, 4), (8, 3), (8, 1),
+]
 # K2 m: a duplex, the Merkle levels from 2^16 digests down to 256, the
 # grind's batches of 2^14; 8 and 1,024 take the 16-lane variant, 2^16 the
-# other.
-K2_SIZES = [1, 8, *[1 << k for k in range(8, 17)]]
+# other. The recursion path's trees are up to 2^20 leaves tall.
+K2_SIZES = [1, 8, *[1 << k for k in range(8, 21)]]
 # K3 (h, injected heights): the trees of the traces hand over 256 digests
 # and compress the short chips' digests in; a FRI tree of 256 leaves or
 # fewer is one call with none.
 K3_SHAPES = [(256, ()), (256, (64, 32, 16, 8)), (256, (128, 64, 8, 1)), (256, (32,)),
-             *[(1 << k, ()) for k in range(7, 0, -1)], (16, (4,))]
+             *[(1 << k, ()) for k in range(7, 0, -1)], (16, (4,)),
+             (256, (32, 16)), (256, (8,))]
+# How many of phase 5's six shard proofs phase 8 compresses: four make a
+# tree of two layers (joins of lifts, a join of joins) in about a third of
+# the time all six take.
+RECURSION_SHARDS = 4
 
 
 def phase_kernels(dev) -> dict:
@@ -106,7 +143,7 @@ def phase_kernels(dev) -> dict:
     def rand(n, w):
         return rng.integers(0, 2130706433, (n, w), dtype=np.uint32)
 
-    for n, w in K1_SHAPES:
+    for n, w in K1_SHAPES + K1_RECURSION_SHAPES:
         big = n * w >= 1 << 20
         check("hash_rows", kernels.hash_rows, tp2.hash_rows_plain, hp2.hash_rows,
               rand(n, w), 10 if big else 30, 2, kb.k1_bound(n, w))
@@ -132,7 +169,7 @@ def phase_kernels(dev) -> dict:
     return rec
 
 
-def phase_small_shard(dev) -> None:
+def phase_small_shard(dev) -> tuple:
     from ziren_tpu_torch.executor.asm import fibonacci_program
     from ziren_tpu_torch.machine.mips import execute, mips_machine
     from ziren_tpu_torch.stark.config import dev_config
@@ -156,9 +193,31 @@ def phase_small_shard(dev) -> None:
     assert machine.verify(vk, MachineProof([port]))
     print(f"  fibonacci(30) dev-config shard: byte-identical to the host proof, "
           f"verified ({dt:.2f} s on the port)", flush=True)
+    return machine, vk, port
 
 
-def phase_main_path(dev) -> dict:
+def launches_of(path: str) -> dict:
+    """The kernels' counts since the last reset, read just after `path` ran.
+    Fails if a kernel was not launched on it, or was launched at a shape
+    that phase 3 did not hold."""
+    from ziren_tpu_torch import kernels
+
+    launches = dict(kernels.LAUNCHES)
+    shapes = {k: dict(v) for k, v in kernels.SHAPES.items()}
+    print(f"  kernel launches on {path}: {launches}", flush=True)
+    for name, hist in shapes.items():
+        print(f"  {name} launches by shape: "
+              + ", ".join(f"{k}: {v}" for k, v in sorted(hist.items(), key=str)), flush=True)
+    for name, count in launches.items():
+        assert count > 0, f"kernel {name} was not launched on {path}"
+    held = {"hash_rows": set(K1_SHAPES + K1_RECURSION_SHAPES), "permute": set(K2_SIZES),
+            "compress_levels": set(K3_SHAPES)}
+    missed = {name: sorted(set(hist) - held[name], key=str) for name, hist in shapes.items()}
+    assert not any(missed.values()), f"launched at shapes phase 3 did not hold: {missed}"
+    return launches
+
+
+def phase_main_path(dev) -> tuple:
     from ziren_tpu_torch.executor.asm import fibonacci_program
     from ziren_tpu_torch.machine.mips import execute_sharded, mips_machine, verify_mips_proof
     from ziren_tpu_torch.stark.config import core_config
@@ -184,16 +243,13 @@ def phase_main_path(dev) -> dict:
     proof = prove(machine, pk, records, fix_shapes=True, stats=stats)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    shapes = {k: dict(v) for k, v in kernels.SHAPES.items()}
+    launches = launches_of("the main path")
     peak = torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
     assert verify_mips_proof(machine, vk, proof, pc_start=program.pc_start)
     verify_s = time.perf_counter() - t0
     assert len(proof.shard_proofs) == len(records)
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} was not launched on the main path"
 
     print(f"  fibonacci({n}) core config: cycles {cycles}, shards {len(records)}, "
           f"setup {setup_s:.3f} s, execute {exec_s:.3f} s", flush=True)
@@ -208,15 +264,6 @@ def phase_main_path(dev) -> dict:
           flush=True)
     print(f"  peak device memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB)",
           flush=True)
-    print(f"  kernel launches on the main path: {launches}", flush=True)
-    for name, hist in shapes.items():
-        print(f"  {name} launches by shape: "
-              + ", ".join(f"{k}: {v}" for k, v in sorted(hist.items(), key=str)), flush=True)
-    # phase 3 held every kernel at every shape this prove launched it with
-    held = {"hash_rows": set(K1_SHAPES), "permute": set(K2_SIZES),
-            "compress_levels": set(K3_SHAPES)}
-    missed = {name: sorted(set(hist) - held[name], key=str) for name, hist in shapes.items()}
-    assert not any(missed.values()), f"launched at shapes phase 3 did not hold: {missed}"
     rates = [cycles / prove_s / 1e3]
     for _ in range(2):  # the spread of the rate, on the same card
         _ex2, again = execute_sharded(program, shard_size)
@@ -226,6 +273,113 @@ def phase_main_path(dev) -> dict:
         rates.append(cycles / (time.perf_counter() - t0) / 1e3)
     print("  prove-only kHz of three proves: "
           + ", ".join(f"{r:.3f}" for r in rates), flush=True)
+    return launches, (program, machine, vk, proof)
+
+
+def phase_merkle_ntt(dev) -> None:
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.core import field as F
+    from ziren_tpu_torch.core import merkle as hmerkle
+    from ziren_tpu_torch.core import ntt as hntt
+    from ziren_tpu_torch.ops import tfield as tf
+    from ziren_tpu_torch.ops import tmerkle, tntt
+
+    rng = np.random.default_rng(83)
+    m = rng.integers(0, F.P_INT, (1 << 17, 83), dtype=np.uint32)
+    tree = hmerkle.commit([m])
+    x = tf.from_host(m, dev)
+    leaves = tmerkle.leaf_hashes(x)
+    assert np.array_equal(tf.to_host(leaves), tree.levels[0])
+    kernels.reset_launches()
+    root = tmerkle.merkle_root(x)
+    root_launches = dict(kernels.LAUNCHES)
+    assert np.array_equal(tf.to_host(root), tree.root)
+    assert np.array_equal(tf.to_host(tmerkle.compress_levels(leaves, 5)), tree.levels[5])
+    assert np.array_equal(tf.to_host(tmerkle.compress_levels(leaves, 17)), tree.levels[17])
+    print("  tmerkle: leaf hashes, root and level folds of a (131072, 83) matrix "
+          f"equal the host tree's; merkle_root launched {root_launches}", flush=True)
+    e = rng.integers(0, F.P_INT, (1 << 14, 16), dtype=np.uint32)
+    evals = tntt.ntt(e)  # device=None: the GPU
+    assert np.array_equal(evals, hntt.ntt(e))
+    assert np.array_equal(tntt.intt(evals), e)
+    assert np.array_equal(tntt.coset_lde(e, 1, F.GENERATOR), hntt.coset_lde(e, 1, F.GENERATOR))
+    print("  tntt: ntt, intt and coset_lde of a (16384, 16) matrix equal the host's",
+          flush=True)
+
+
+def phase_small_recursion(machine, vk, shard_proof) -> None:
+    from ziren_tpu_torch.recursion import mips_pipeline as mp
+    from ziren_tpu_torch.stark.proof import MachineProof
+    from ziren_tpu_torch.stark.serialize import serialize_shard_proof
+
+    t0 = time.perf_counter()
+    rm, rvk, on_card = mp.lift_shard(machine, vk, shard_proof)  # device=None: the GPU
+    dt = time.perf_counter() - t0
+    _rm, _rvk, on_host = mp.lift_shard(machine, vk, shard_proof, device="host")
+    assert serialize_shard_proof(on_card) == serialize_shard_proof(on_host), \
+        "the port's recursion proof differs from the host prover's"
+    assert rm.verify(rvk, MachineProof([on_card]))
+    print(f"  dev-config lift of the fibonacci(30) shard: byte-identical to the host "
+          f"proof, verified ({dt:.2f} s on the port)", flush=True)
+
+
+def phase_recursion(program, machine, vk, proof) -> dict:
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.recursion import mips_pipeline as mp
+    from ziren_tpu_torch.recursion import pipeline as pl
+    from ziren_tpu_torch.stark.config import compressed_config
+    from ziren_tpu_torch.stark.proof import MachineProof
+    from ziren_tpu_torch.tools import compress_bench as cb
+
+    shards = proof.shard_proofs[:RECURSION_SHARDS]
+    whole = len(shards) == len(proof.shard_proofs)
+    config = machine.config
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with cb.instrument() as times:
+        t0 = time.perf_counter()
+        registry = cb.tree_registry(machine, vk, shards, config)
+        t1 = time.perf_counter()
+        rm, rvk, root = mp.compress(machine, vk, MachineProof(shards), config=config,
+                                    registry=registry)  # device=None: the GPU
+        t2 = time.perf_counter()
+        sm, svk, sproof, _ = pl.shrink(rm, rvk, root, config=compressed_config())
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    registry_s, compress_s, shrink_s = t1 - t0, t2 - t1, t3 - t2
+    launches = launches_of("the recursion path")
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    if whole:  # the root's vk is a member, its RPV carries the registry's root
+        mp.verify_compressed(machine, vk, rm, rvk, root, pc_start=program.pc_start,
+                             registry=registry)
+    else:  # a partial range: a valid proof that does not attest the whole execution
+        assert rm.verify(rvk, MachineProof([root]))
+        registry.membership(rvk.commit)
+        rpv = [int(v) for v in root.public_values]
+        assert rpv[mp.RPV_IS_COMPLETE] == 0 and rpv[mp.RPV_START_SHARD] == 1
+        assert rpv[mp.RPV_NEXT_SHARD] == 1 + len(shards)
+        assert rpv[mp.RPV_VK : mp.RPV_VK + 8] == [int(v) for v in vk.commit]
+        assert rpv[mp.RPV_VK_ROOT : mp.RPV_VK_ROOT + 8] == [int(v) for v in registry.root]
+    assert sm.verify(svk, sproof)
+    assert [int(v) for v in sproof.shard_proofs[0].public_values] == pl.lift_digest(rvk, root)
+    verify_s = time.perf_counter() - t0
+    assert len(times["lift"]) == len(shards) and len(times["join"]) == len(shards) - 1
+
+    print(f"  {len(shards)} of {len(proof.shard_proofs)} core-config shard proofs: the "
+          f"tree's registry {registry_s:.2f} s, compress {compress_s:.2f} s "
+          f"({len(times['enum_lift'])} lifts and {len(times['enum_join'])} joins traced "
+          f"without proving, in both), shrink "
+          f"{shrink_s:.2f} s; the root ({'verify_compressed' if whole else 'a partial range'}) "
+          f"and the shrink proof verified in {verify_s:.2f} s", flush=True)
+    for kind in ("lift", "join", "shrink"):
+        print(f"  {kind} s, total (split): " + cb.summary(times[kind]), flush=True)
+        print(f"  last {kind}'s machine (chip, log2 height, width, preprocessed width): "
+              f"{times[kind][-1]['machine']}", flush=True)
+    print(f"  peak device memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB)",
+          flush=True)
     return launches
 
 
@@ -252,17 +406,27 @@ def main() -> None:
     rec = phase_kernels(dev)
 
     print("phase 4: small shard, port vs host prover", flush=True)
-    phase_small_shard(dev)
+    small = phase_small_shard(dev)
 
     print("phase 5: main path", flush=True)
-    launches = phase_main_path(dev)
+    launches, main_path = phase_main_path(dev)
+
+    print("phase 6: tmerkle and tntt vs the host", flush=True)
+    phase_merkle_ntt(dev)
+
+    print("phase 7: small recursion shard, port vs host prover", flush=True)
+    phase_small_recursion(*small)
+
+    print("phase 8: the recursion path", flush=True)
+    recursion_launches = phase_recursion(*main_path)
 
     def entry(name, replaces, shape):
         # library_ms: no PyTorch call computes Poseidon2 or a Merkle level
         r = rec[name]
         ms, plain_ms, bound_ms, bound_by = r["shapes"][shape]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": launches[name] + recursion_launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "shape": str(shape)}

@@ -26,6 +26,11 @@ def test_every_module_imports_without_jax():
     mods = _modules() + ["chip_smoke"]
     assert "ziren_tpu_torch.stark.tprover" in mods and "ziren_tpu_torch.kernels" in mods
     assert "ziren_tpu_torch.machine.mips" in mods and "ziren_tpu_torch.executor.native" in mods
+    for m in ("ops.tmerkle", "ops.tntt", "tools.compress_bench", "recursion.deferred",
+              "recursion.dsl", "recursion.machine", "recursion.mips_pipeline",
+              "recursion.pipeline", "recursion.septic", "recursion.shape_universe",
+              "recursion.verifier", "recursion.vk_registry"):
+        assert "ziren_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -141,3 +141,38 @@ def test_k1_rejects_bad_inputs(cuda):
         kernels.hash_rows(rows.t())
     with pytest.raises(ValueError):
         kernels.permute(rows[:, :8].contiguous())
+
+
+def test_launch_counts_hold_under_threads():
+    """The recursion tree proves its lifts in a thread pool, so several
+    threads count launches at once: no update is lost."""
+    import sys
+    import threading
+
+    threads, each = 16, 2000
+    saved = sys.getswitchinterval()
+    before = dict(kernels.LAUNCHES), {k: dict(v) for k, v in kernels.SHAPES.items()}
+    kernels.reset_launches()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(i):
+            for j in range(each):
+                kernels._count("permute", j % 3)
+                kernels._count("hash_rows", (i, 8))
+
+        pool = [threading.Thread(target=work, args=(i,)) for i in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in pool)
+        assert kernels.LAUNCHES == {"hash_rows": threads * each, "permute": threads * each,
+                                    "compress_levels": 0}
+        assert sum(kernels.SHAPES["permute"].values()) == threads * each
+        assert kernels.SHAPES["hash_rows"] == {(i, 8): each for i in range(threads)}
+    finally:
+        sys.setswitchinterval(saved)
+        kernels.reset_launches()
+        kernels.LAUNCHES.update(before[0])
+        for k, v in before[1].items():
+            kernels.SHAPES[k].update(v)

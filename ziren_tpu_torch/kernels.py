@@ -49,23 +49,27 @@ LEVELS_MAX_HEIGHT = 256
 
 # launches per entry point since the last reset_launches(), and the same
 # by shape: (n, w) for hash_rows, m for permute, (h, injected heights) for
-# compress_levels
+# compress_levels. Several host threads may launch at once (the recursion
+# tree proves its lifts in a thread pool), so the counts change under a lock.
 LAUNCHES = {"hash_rows": 0, "permute": 0, "compress_levels": 0}
 SHAPES: dict = {k: {} for k in LAUNCHES}
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIB: list = []
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-        SHAPES[k].clear()
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+            SHAPES[k].clear()
 
 
 def _count(name: str, shape) -> None:
-    LAUNCHES[name] += 1
-    SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
 
 
 def constants_header() -> str:

@@ -11,6 +11,8 @@ finished proof at the end. Proofs are bit-identical to stark/prover.py.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -81,10 +83,19 @@ def unflatten_fetch(flat_np, meta):
 # ---------------------------------------------------------------------------
 
 
+_PK_LOCK = threading.Lock()
+
+
 def device_pk(machine, pk, device):
     """Device commit of the preprocessed traces, cached on the pk per
-    device; raises unless it reproduces the host pk.commit."""
-    device = torch.device(device)
+    device; raises unless it reproduces the host pk.commit. Threads that
+    prove under one pk at once (same-shaped recursion proofs share their
+    keys) commit it once: the cache fills under a lock."""
+    with _PK_LOCK:
+        return _device_pk(machine, pk, torch.device(device))
+
+
+def _device_pk(machine, pk, device):
     cache = getattr(pk, "_torch_data_cache", None)
     if cache is None:
         cache = pk._torch_data_cache = {}
