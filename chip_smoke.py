@@ -38,7 +38,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      (pipeline.shrink) and verified. Reports the seconds of every lift and
      join with their split, of the registry and of shrink, the machines'
      chips and heights, the kernels' launches and launch shapes on this path
-     (each must be among those phase 3 held), and peak device memory.
+     (each must be among those phase 3 held), and peak device memory;
+  9. the service path, through the entry points a user calls: a
+     ProverServer at the core config in this process (device left at its
+     default, the GPU) and a NetworkProver pointed at it serve
+     fibonacci(58218) in shards of 2^16 - 64 cycles: ready, setup, execute
+     (the cycle count of phase 5), three proves in turn and two at once from
+     two threads, each verified by the client's own ProverClient and
+     byte-equal to an in-process machine.mips.prove_program of the same
+     program (the SDK's setup observes the entry pc and its prove leaves the
+     last shard at its own shape, so phase 5's proof, which does neither, is
+     another proof); a second setup builds no second key; an unknown program
+     id comes back as an error and the server goes on answering. Then the
+     CLI in processes of their own (python3 -m ziren_tpu_torch vkey, prove,
+     verify at the dev config on a hand-written guest ELF; the same prove in
+     this process gives the file's bytes and that leg's launches), and
+     ProverClient(config="dev") up the ladder on fibonacci(30):
+     compressed_prove (its default registry, the full enumeration, fits at
+     this size only), verify_compressed, shrink_prove, wrap_prove (the host
+     prover under outer_dev_config()), verify_wrapped. Reports every
+     request's seconds at the client and in the server's prove, the bytes of
+     request and reply, the client's verify, the kernels' launches and
+     launch shapes (each among those phase 3 held) and peak device memory.
 
 The last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}. Without CUDA the script fails before any
@@ -48,8 +69,12 @@ result is printed.
 from __future__ import annotations
 
 import json
+import os
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -96,11 +121,70 @@ K2_SIZES = [1, 8, *[1 << k for k in range(8, 21)]]
 # fewer is one call with none.
 K3_SHAPES = [(256, ()), (256, (64, 32, 16, 8)), (256, (128, 64, 8, 1)), (256, (32,)),
              *[(1 << k, ()) for k in range(7, 0, -1)], (16, (4,)),
-             (256, (32, 16)), (256, (8,))]
-# How many of phase 5's six shard proofs phase 8 compresses: four make a
-# tree of two layers (joins of lifts, a join of joins) in about a third of
-# the time all six take.
-RECURSION_SHARDS = 4
+             (256, (32, 16)), (256, (8,)), (256, (32, 16, 8))]
+# The service path (phase 9). StarkMachine.prove as the SDK calls it leaves
+# every shard at its own shape: the sixth shard of fibonacci(58218) is
+# shorter than the five that phase 5 pads it to.
+K1_SERVICE_SHAPES = [
+    (131072, 28), (131072, 11), (65536, 97), (65536, 52), (65536, 12), (8192, 46), (8192, 20),
+    (32, 47), (32, 24), (32, 12),
+]
+# The dev-config ladder (phase 9): lift, join and shrink machines of 8
+# queries, from 2^16 rows down.
+K1_LADDER_SHAPES = [
+    (131072, 56), (131072, 28), (131072, 25), (131072, 15), (131072, 11), (65536, 100),
+    (65536, 44), (65536, 41), (65536, 26), (65536, 24), (65536, 16), (32768, 3),
+    (16384, 401), (16384, 144), (16384, 77), (16384, 28), (16384, 24), (16384, 16),
+    (16384, 11), (8192, 393), (8192, 124), (8192, 61), (8192, 16), (512, 97), (512, 52),
+    (512, 12), (64, 92), (64, 36),
+]
+# The CLI's guest (phase 9): sixteen words at the dev config, one shard whose
+# chips are 8 to 256 rows tall beside the 2^16 rows of the memory and program
+# tables; the tree of its traces takes five short chips' digests in.
+K1_CLI_SHAPES = [
+    (256, 75), (256, 44), (128, 22), (128, 4), (32, 84), (32, 44), (32, 20),
+    (8, 601), (8, 284), (8, 96),
+]
+K3_CLI_SHAPES = [(256, (128, 64, 32, 16, 8))]
+K1_ALL_SHAPES = list(dict.fromkeys(K1_SHAPES + K1_RECURSION_SHAPES + K1_SERVICE_SHAPES
+                                   + K1_LADDER_SHAPES + K1_CLI_SHAPES))
+FIB_N, SHARD_SIZE, FIB_CYCLES = 58218, (1 << 16) - 64, 349318
+# How many of phase 5's six shard proofs phase 8 compresses: two make a
+# tree of one join over two lifts, in about a fifth of the time all six
+# take, so that the script with phase 9 stays near half its time limit.
+# K1_RECURSION_SHAPES goes on holding the shapes of the six-shard tree.
+RECURSION_SHARDS = 2
+
+
+def minimal_elf(n: int = 10, vaddr: int = 0x10000) -> bytes:
+    """A MIPS32 little-endian ET_EXEC file of one PT_LOAD segment (read and
+    execute) holding sixteen hand-encoded words: fibonacci in registers, n
+    turns of a loop, the result committed as public word 0, then the halt
+    syscall. The guest file of the CLI legs, here and in the tests."""
+    assert 0 < n < 0x8000
+    words = [
+        0x24080000 | n,  # addiu $t0, $zero, n
+        0x24090000,      # addiu $t1, $zero, 0      a
+        0x240A0001,      # addiu $t2, $zero, 1      b
+        0x012A5821,      # loop: addu $t3, $t1, $t2
+        0x25490000,      # addiu $t1, $t2, 0
+        0x256A0000,      # addiu $t2, $t3, 0
+        0x2508FFFF,      # addiu $t0, $t0, -1
+        0x1D00FFFB,      # bgtz $t0, loop
+        0x00000000,      # nop (the delay slot)
+        0x24020010,      # addiu $v0, $zero, 0x10   COMMIT
+        0x24040000,      # addiu $a0, $zero, 0      word 0
+        0x25450000,      # addiu $a1, $t2, 0
+        0x0000000C,      # syscall
+        0x24020000,      # addiu $v0, $zero, 0      HALT
+        0x24040000,      # addiu $a0, $zero, 0      exit code
+        0x0000000C,      # syscall
+    ]
+    code = b"".join(struct.pack("<I", w) for w in words)
+    ehdr = struct.pack("<16sHHIIIIIHHHHHH", b"\x7fELF\x01\x01\x01" + bytes(9), 2, 8, 1,
+                       vaddr, 52, 0, 0x1000, 52, 32, 1, 40, 0, 0)
+    phdr = struct.pack("<IIIIIIII", 1, 84, vaddr, vaddr, len(code), len(code), 5, 4)
+    return ehdr + phdr + code
 
 
 def phase_kernels(dev) -> dict:
@@ -143,7 +227,7 @@ def phase_kernels(dev) -> dict:
     def rand(n, w):
         return rng.integers(0, 2130706433, (n, w), dtype=np.uint32)
 
-    for n, w in K1_SHAPES + K1_RECURSION_SHAPES:
+    for n, w in K1_ALL_SHAPES:
         big = n * w >= 1 << 20
         check("hash_rows", kernels.hash_rows, tp2.hash_rows_plain, hp2.hash_rows,
               rand(n, w), 10 if big else 30, 2, kb.k1_bound(n, w))
@@ -152,7 +236,7 @@ def phase_kernels(dev) -> dict:
               rand(m, 16), 50, 5, kb.k2_bound(m))
         x = tf.from_host(rand(m, 16), dev)
         assert torch.equal(kernels.permute_variant(x, True), kernels.permute_variant(x, False)), m
-    for h, heights in K3_SHAPES:
+    for h, heights in K3_SHAPES + K3_CLI_SHAPES:
         cur = tf.from_host(rand(h, 8), dev)
         inj = {hh: tf.from_host(rand(hh, 8), dev) for hh in heights}
         got = kernels.compress_levels(cur, inj)
@@ -210,8 +294,8 @@ def launches_of(path: str) -> dict:
               + ", ".join(f"{k}: {v}" for k, v in sorted(hist.items(), key=str)), flush=True)
     for name, count in launches.items():
         assert count > 0, f"kernel {name} was not launched on {path}"
-    held = {"hash_rows": set(K1_SHAPES + K1_RECURSION_SHAPES), "permute": set(K2_SIZES),
-            "compress_levels": set(K3_SHAPES)}
+    held = {"hash_rows": set(K1_ALL_SHAPES), "permute": set(K2_SIZES),
+            "compress_levels": set(K3_SHAPES + K3_CLI_SHAPES)}
     missed = {name: sorted(set(hist) - held[name], key=str) for name, hist in shapes.items()}
     assert not any(missed.values()), f"launched at shapes phase 3 did not hold: {missed}"
     return launches
@@ -224,7 +308,7 @@ def phase_main_path(dev) -> tuple:
     from ziren_tpu_torch import kernels
     from ziren_tpu_torch.stark.machine import prove
 
-    n, shard_size = 58218, (1 << 16) - 64
+    n, shard_size = FIB_N, SHARD_SIZE
     program = fibonacci_program(n)
     machine = mips_machine(core_config())
     t0 = time.perf_counter()
@@ -234,6 +318,7 @@ def phase_main_path(dev) -> tuple:
     ex, records = execute_sharded(program, shard_size)
     exec_s = time.perf_counter() - t0
     cycles = int(ex.global_clk)
+    assert cycles == FIB_CYCLES
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -383,8 +468,204 @@ def phase_recursion(program, machine, vk, proof) -> dict:
     return launches
 
 
+def phase_service() -> dict:
+    """The service path. Returns the kernels' launches: the core-config
+    requests', the CLI guest's and the dev-config ladder's, counted apart."""
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.executor.asm import fibonacci_program
+    from ziren_tpu_torch.machine.mips import prove_program
+    from ziren_tpu_torch.network import NetworkProver, ProverServer, wire
+    from ziren_tpu_torch.network.client import NetworkProverError
+    from ziren_tpu_torch.sdk import ProverClient
+    from ziren_tpu_torch.stark.config import core_config, outer_dev_config
+    from ziren_tpu_torch.stark.serialize import serialize_machine_proof
+
+    program = fibonacci_program(FIB_N)
+    t0 = time.perf_counter()
+    _m, _pk, _vk, direct, ex = prove_program(program, config=core_config(),
+                                             shard_size=SHARD_SIZE)  # device=None: the GPU
+    want = serialize_machine_proof(direct)
+    print(f"  in-process prove_program (setup, execute, prove): "
+          f"{time.perf_counter() - t0:.3f} s, {len(direct.shard_proofs)} shards, "
+          f"{len(want)} bytes of proof", flush=True)
+    assert int(ex.global_clk) == FIB_CYCLES
+
+    server = ProverServer(host="127.0.0.1", port=0, config="core")  # device=None: the GPU
+    served_s, lock = [], threading.Lock()
+    inner = server.service._client.prove
+
+    def timed_prove(*args, **kw):  # the server's seconds in ProverClient.prove
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kw)
+        finally:
+            with lock:
+                served_s.append(time.perf_counter() - t0)
+
+    server.service._client.prove = timed_prove
+    with server:
+        prover = NetworkProver(server.endpoint, timeout=600.0, config="core")
+        assert prover.ready()
+        t0 = time.perf_counter()
+        pk, vk = prover.setup(program)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _values, report = prover.execute(pk)
+        execute_s = time.perf_counter() - t0
+        assert report.total_instruction_count == FIB_CYCLES and report.exit_code == 0
+        print(f"  ready; setup {setup_s:.3f} s (the server's key and the client's own vk); "
+              f"execute {execute_s:.3f} s, {report.total_instruction_count} cycles", flush=True)
+
+        def request(client):
+            t0 = time.perf_counter()
+            proof = client.prove(pk, shard_size=SHARD_SIZE, verify=False)
+            t1 = time.perf_counter()
+            assert client._local.verify(proof, vk)  # the client's own ProverClient
+            return proof, t1 - t0, time.perf_counter() - t1
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the earlier phases' cached keys
+        kernels.reset_launches()
+        singles = [request(prover) for _ in range(3)]
+        for proof, _s, _v in singles:
+            assert serialize_machine_proof(proof.proof) == want, \
+                "a served proof differs from the in-process prove"
+        req_bytes = len(wire.dumps({"program_id": pk.program_id, "stdin": None,
+                                    "shard_size": SHARD_SIZE}))
+        reply_bytes = len(wire.dumps({"ok": True, "result": {"proof": singles[0][0]}}))
+        single_served = list(served_s)
+        single_peak = torch.cuda.max_memory_allocated()
+
+        pair: list = [None, None]
+
+        def worker(i):
+            pair[i] = request(NetworkProver(server.endpoint, timeout=600.0, config="core"))
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        pair_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = launches_of("the service path")
+        peak = torch.cuda.max_memory_allocated()
+        assert all(pair), "a concurrent request failed"
+        for proof, _s, _v in pair:
+            assert serialize_machine_proof(proof.proof) == want, \
+                "a proof served beside another differs from the in-process prove"
+
+        pk2, _vk2 = prover.setup(program)
+        assert pk2.program_id == pk.program_id and len(server.service._keys) == 1
+        try:
+            prover.prove(type(pk)("feed" * 16, vk), shard_size=SHARD_SIZE)
+        except NetworkProverError as e:
+            assert "unknown program id" in str(e)
+        else:
+            raise AssertionError("an unknown program id was served")
+        assert prover.ready()
+
+    print("  three ProveCore requests in turn, client s: "
+          + ", ".join(f"{s:.3f}" for _p, s, _v in singles)
+          + "; the server's prove s: " + ", ".join(f"{s:.3f}" for s in single_served)
+          + "; the client's verify s: " + ", ".join(f"{v:.3f}" for _p, _s, v in singles),
+          flush=True)
+    print(f"  request {req_bytes} bytes, reply {reply_bytes} bytes on the wire; "
+          f"every proof byte-equal to the in-process prove", flush=True)
+    print("  two ProveCore requests at once, client s: "
+          + ", ".join(f"{s:.3f}" for _p, s, _v in pair)
+          + "; the server's prove s: " + ", ".join(f"{s:.3f}" for s in served_s[3:])
+          + "; the client's verify s: " + ", ".join(f"{v:.3f}" for _p, _s, v in pair)
+          + f"; both proved and verified in {pair_s:.3f} s", flush=True)
+    print(f"  {FIB_CYCLES / 1e3 / (sum(s for _p, s, _v in singles) / 3):.3f} kHz a request in "
+          f"turn, {2 * FIB_CYCLES / 1e3 / max(s for _p, s, _v in pair):.3f} kHz with two at "
+          f"once (client seconds, verify left out)", flush=True)
+    print("  a second setup built no second key; an unknown program id came back as an "
+          "error and the server went on answering", flush=True)
+    print(f"  peak device memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB) with two "
+          f"requests in flight, {single_peak} bytes with one; {held} bytes of them were "
+          f"held when the path began (the earlier phases' keys)", flush=True)
+
+    # the CLI, each command a process of its own, at the dev config on the card
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        elf, out = os.path.join(tmp, "fib.elf"), os.path.join(tmp, "proof.bin")
+        with open(elf, "wb") as f:
+            f.write(minimal_elf(10))
+
+        def cli(*argv):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "ziren_tpu_torch", *argv], cwd=repo,
+                                 env=env, capture_output=True, text=True, timeout=300)
+            assert res.returncode == 0, (argv, res.stderr[-2000:])
+            return res.stdout, time.perf_counter() - t0
+
+        vkey, vkey_s = cli("vkey", elf, "--config", "dev")
+        proved, prove_s = cli("prove", elf, "--config", "dev", "-o", out)
+        verified, verify_s = cli("verify", elf, out, "--config", "dev")
+        assert vkey.startswith("vk: ") and "1 shard(s)" in proved
+        assert "committed: " + (89).to_bytes(4, "little").hex() in proved
+        assert verified.startswith("verification: ok")
+        dev = ProverClient(config="dev")  # device=None: the GPU
+        with open(elf, "rb") as f:
+            epk, evk = dev.setup(f.read())
+        # the same guest and config in this process: the launches and launch
+        # shapes of the CLI's prove, which its own process took with it
+        kernels.reset_launches()
+        in_process = dev.prove(epk)
+        torch.cuda.synchronize()
+        cli_launches = launches_of("the CLI's guest (ProverClient.prove in this process)")
+        with open(out, "rb") as f:
+            assert f.read() == serialize_machine_proof(in_process.proof), \
+                "the CLI's proof file differs from ProverClient.prove"
+    print(f"  python3 -m ziren_tpu_torch on a 16-word guest ELF, dev config, each a process: "
+          f"vkey {vkey_s:.2f} s, prove {prove_s:.2f} s (the file byte-equal to "
+          f"ProverClient.prove), verify {verify_s:.2f} s", flush=True)
+
+    # the upper rungs of the ladder, dev config, one shard
+    kernels.reset_launches()
+    small = fibonacci_program(30)
+    spk, svk = dev.setup(small)
+    t0 = time.perf_counter()
+    compressed = dev.compressed_prove(spk)
+    t1 = time.perf_counter()
+    dev.verify_compressed(compressed, svk)
+    t2 = time.perf_counter()
+    shrunk = dev.shrink_prove(compressed)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ladder = launches_of("the dev-config ladder")
+    wrapped = dev.wrap_prove(shrunk, outer=outer_dev_config())
+    t4 = time.perf_counter()
+    assert dev.verify_wrapped(wrapped, shrunk)
+    t5 = time.perf_counter()
+    back = wire.loads(wire.dumps({"ok": True, "result": {"compressed": compressed}}))
+    dev.verify_compressed(back["result"]["compressed"], svk)  # a CompressedProve reply
+    print(f"  ProverClient(config='dev') on fibonacci(30), one shard: compressed_prove "
+          f"{t1 - t0:.2f} s (core prove, the full lift + join registry, one lift; it fits "
+          f"at the dev config only: at the core config the registry does not fit in a "
+          f"call), verify_compressed {t2 - t1:.2f} s, shrink_prove {t3 - t2:.2f} s, "
+          f"wrap_prove {t4 - t3:.2f} s (the host prover, outer_dev_config()), "
+          f"verify_wrapped {t5 - t4:.2f} s; Groth16 and Plonk are not run here",
+          flush=True)
+    return {k: (launches[k], cli_launches[k], ladder[k]) for k in launches}
+
+
 def main() -> None:
     dev = require_cuda()
+    started = time.perf_counter()
+    seconds = {}
+
+    def phase(n, title, fn, *args):
+        print(f"phase {n}: {title}", flush=True)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[n] = time.perf_counter() - t0
+        return out
+
     print("phase 1: environment", flush=True)
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}", flush=True)
@@ -402,23 +683,16 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip(), flush=True)
 
-    print("phase 3: kernels vs plain PyTorch on the card", flush=True)
-    rec = phase_kernels(dev)
-
-    print("phase 4: small shard, port vs host prover", flush=True)
-    small = phase_small_shard(dev)
-
-    print("phase 5: main path", flush=True)
-    launches, main_path = phase_main_path(dev)
-
-    print("phase 6: tmerkle and tntt vs the host", flush=True)
-    phase_merkle_ntt(dev)
-
-    print("phase 7: small recursion shard, port vs host prover", flush=True)
-    phase_small_recursion(*small)
-
-    print("phase 8: the recursion path", flush=True)
-    recursion_launches = phase_recursion(*main_path)
+    rec = phase(3, "kernels vs plain PyTorch on the card", phase_kernels, dev)
+    small = phase(4, "small shard, port vs host prover", phase_small_shard, dev)
+    launches, main_path = phase(5, "main path", phase_main_path, dev)
+    phase(6, "tmerkle and tntt vs the host", phase_merkle_ntt, dev)
+    phase(7, "small recursion shard, port vs host prover", phase_small_recursion, *small)
+    recursion_launches = phase(8, "the recursion path", phase_recursion, *main_path)
+    service_launches = phase(9, "the service path", phase_service)
+    print("seconds by phase (phase 2 is the build above): "
+          + ", ".join(f"{n}: {s:.1f}" for n, s in sorted(seconds.items()))
+          + f"; the whole script {time.perf_counter() - started:.1f}", flush=True)
 
     def entry(name, replaces, shape):
         # library_ms: no PyTorch call computes Poseidon2 or a Merkle level
@@ -426,7 +700,8 @@ def main() -> None:
         ms, plain_ms, bound_ms, bound_by = r["shapes"][shape]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces,
-                "launches": launches[name] + recursion_launches[name],
+                "launches": launches[name] + recursion_launches[name]
+                + sum(service_launches[name]),
                 "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "shape": str(shape)}

@@ -29,7 +29,14 @@ def test_every_module_imports_without_jax():
     for m in ("ops.tmerkle", "ops.tntt", "tools.compress_bench", "recursion.deferred",
               "recursion.dsl", "recursion.machine", "recursion.mips_pipeline",
               "recursion.pipeline", "recursion.septic", "recursion.shape_universe",
-              "recursion.verifier", "recursion.vk_registry"):
+              "recursion.verifier", "recursion.vk_registry",
+              "sdk", "__main__", "install", "network.auth", "network.client",
+              "network.service", "network.wire", "verifier.artifacts",
+              "verifier.bn254_pairing", "verifier.groth16", "verifier.plonk", "verifier.stark",
+              "snark.bn254_curve_native", "snark.circuit", "snark.circuit_outer",
+              "snark.contract", "snark.frvec", "snark.groth16", "snark.plonk",
+              "snark.wrap_circuit", "guest.abi", "guest.build", "stark.interop",
+              "stark.picus", "machine.debug"):
         assert "ziren_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
