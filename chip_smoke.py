@@ -6,13 +6,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. torch / CUDA versions and the card's name and power limit;
   2. build the hand-written kernels from ziren_tpu_torch/csrc/;
-  3. K1 (Poseidon2 row sponge), K2 (Poseidon2 permutation, both variants)
-     and K3 (the lower levels of a Merkle tree) against their plain PyTorch
-     versions on the card, bit-exact, at every shape the main path launches
-     them with (K1_SHAPES, K2_SIZES, K3_SHAPES below; phase 5 fails if its
-     prove launches a shape that is not among them), and a subsample
-     against the host numpy Poseidon2; kernel and plain times from CUDA
-     events over inputs that exceed the L2, beside the bound
+  3. K1 (Poseidon2 row sponge), K2 (Poseidon2 permutation, both variants),
+     K3 (the lower levels of a Merkle tree) and K4 (the proof-of-work grind)
+     against their plain PyTorch versions on the card, bit-exact, at every
+     shape the main path launches them with (K1_SHAPES, K2_SIZES, K3_SHAPES,
+     K4_CASES below; phase 5 fails if its prove launches a shape that is not
+     among them), and K1-K3 on a subsample and K4 on every case against the
+     host numpy Poseidon2 and challenger; kernel and plain times from CUDA
+     events (K1-K3 over inputs that exceed the L2), beside the bound
      (ziren_tpu_torch/tools/kernel_bench.py defines it);
   4. a dev-config MIPS fibonacci(30) shard proved by the port, byte-equal to
      the host prover's proof, and verified;
@@ -56,12 +57,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      ProverClient(config="dev") up the ladder on fibonacci(30):
      compressed_prove (its default registry, the full enumeration, fits at
      this size only), verify_compressed, shrink_prove, wrap_prove (the host
-     prover under outer_dev_config()), verify_wrapped. Reports every
-     request's seconds at the client and in the server's prove, the bytes of
-     request and reply, the client's verify, the kernels' launches and
-     launch shapes (each among those phase 3 held) and peak device memory.
+     prover under outer_dev_config()), verify_wrapped. The registry is
+     enumerated on the host by a process of its own, started with the
+     script (ladder_registry: host trace generation gives the shard's shape,
+     no proof is made), into the cache file that compressed_prove loads;
+     phase 9 checks that the file was there first and that the root the
+     proof carries is the file's. Reports every request's seconds at the
+     client and in the server's prove, the bytes of request and reply, the
+     client's verify, the kernels' launches and launch shapes (each among
+     those phase 3 held) and peak device memory;
+ 10. the fused path: phase 5's program, machine and keys proved three times
+     through ziren_tpu_torch.stark.tfused.prove_shards_fused (one CUDA graph
+     per shard shape, captured on the first shard of a shape and replayed
+     for the others); the first proof is of phase 5's records and must be
+     byte-equal to phase 5's eager proof, shard for shard, and verify; the
+     two warm proves must make no eager wrapper call, and their launches
+     must equal each graph's capture histogram times its replays. Reports
+     the rate of each prove, capture, instantiate and replay seconds, graph
+     nodes, the graph's memory pool, peak device memory, launches by kernel
+     and shape, and the card's busy share of a replay (torch.profiler).
 
-The last two lines are the kernels' JSON record and the result line
+The script needs one CUDA card. The last two lines are the kernels' JSON
+record and the result line
 {"ok": true, "device": {...}}. Without CUDA the script fails before any
 result is printed.
 """
@@ -146,6 +163,10 @@ K1_CLI_SHAPES = [
     (8, 601), (8, 284), (8, 96),
 ]
 K3_CLI_SHAPES = [(256, (128, 64, 32, 16, 8))]
+# K4 (n_in, nb_bits): every count of values the transcript can hold when it
+# grinds, at the bits of every config the paths use (16: core, compressed;
+# 4: dev, compressed_dev; 2: outer_dev).
+K4_CASES = [(n_in, bits) for bits in (16, 4, 2) for n_in in range(8)]
 K1_ALL_SHAPES = list(dict.fromkeys(K1_SHAPES + K1_RECURSION_SHAPES + K1_SERVICE_SHAPES
                                    + K1_LADDER_SHAPES + K1_CLI_SHAPES))
 FIB_N, SHARD_SIZE, FIB_CYCLES = 58218, (1 << 16) - 64, 349318
@@ -194,8 +215,11 @@ def phase_kernels(dev) -> dict:
     bound_by)}}}."""
     from ziren_tpu_torch import kernels
     from ziren_tpu_torch.core import poseidon2 as hp2
+    from ziren_tpu_torch.core.challenger import DuplexChallenger
+    from ziren_tpu_torch.ops import tchallenger as tch
     from ziren_tpu_torch.ops import tfield as tf
     from ziren_tpu_torch.ops import tposeidon2 as tp2
+    from ziren_tpu_torch.ops.tchallenger import TChallenger
     from ziren_tpu_torch.tools import kernel_bench as kb
 
     rng = np.random.default_rng(2026)
@@ -250,6 +274,22 @@ def phase_kernels(dev) -> dict:
              kb.cuda_ms(lambda x: kernels.compress_levels(x, inj), xs, 50),
              kb.cuda_ms(lambda x: tp2.compress_levels_plain(x, inj), xs[:1], 3),
              kb.k3_bound(h, inj))
+    for n_in, bits in K4_CASES:
+        host = DuplexChallenger()
+        host.observe_slice(rng.integers(0, 2130706433, 24 + n_in, dtype=np.uint32))
+        tc = TChallenger.from_host(host.clone(), dev)
+        state, inputs = tc.state, tc._concat_buffer().contiguous()
+        assert tc._buf_n == n_in
+        got = kernels.grind(state, inputs, bits)
+        want = tch._grind(state, inputs, bits, n_in)
+        torch.cuda.synchronize()
+        err = abs(int(got) - int(want))
+        assert err == 0 and torch.equal(got, want) and int(got) == host.grind(bits), (n_in, bits)
+        print(f"  grind {(n_in, bits)}: witness {int(got)}", flush=True)
+        note("grind", (n_in, bits), err,
+             kb.cuda_ms(lambda x: kernels.grind(x, inputs, bits), [state], 20),
+             kb.cuda_ms(lambda x: tch._grind(x, inputs, bits, n_in), [state], 2),
+             kb.k4_bound(int(got), n_in))
     return rec
 
 
@@ -295,7 +335,7 @@ def launches_of(path: str) -> dict:
     for name, count in launches.items():
         assert count > 0, f"kernel {name} was not launched on {path}"
     held = {"hash_rows": set(K1_ALL_SHAPES), "permute": set(K2_SIZES),
-            "compress_levels": set(K3_SHAPES + K3_CLI_SHAPES)}
+            "compress_levels": set(K3_SHAPES + K3_CLI_SHAPES), "grind": set(K4_CASES)}
     missed = {name: sorted(set(hist) - held[name], key=str) for name, hist in shapes.items()}
     assert not any(missed.values()), f"launched at shapes phase 3 did not hold: {missed}"
     return launches
@@ -329,6 +369,7 @@ def phase_main_path(dev) -> tuple:
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = launches_of("the main path")
+    grind_shape = max(kernels.SHAPES["grind"], key=kernels.SHAPES["grind"].get)
     peak = torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
@@ -358,7 +399,7 @@ def phase_main_path(dev) -> tuple:
         rates.append(cycles / (time.perf_counter() - t0) / 1e3)
     print("  prove-only kHz of three proves: "
           + ", ".join(f"{r:.3f}" for r in rates), flush=True)
-    return launches, (program, machine, vk, proof)
+    return launches, (program, machine, pk, vk, proof, records, grind_shape)
 
 
 def phase_merkle_ntt(dev) -> None:
@@ -390,6 +431,114 @@ def phase_merkle_ntt(dev) -> None:
     assert np.array_equal(tntt.coset_lde(e, 1, F.GENERATOR), hntt.coset_lde(e, 1, F.GENERATOR))
     print("  tntt: ntt, intt and coset_lde of a (16384, 16) matrix equal the host's",
           flush=True)
+
+
+def phase_fused(program, machine, pk, vk, proof, records) -> dict:
+    """Phase 10: the fused path, three proves of phase 5's program. Each
+    is checked against phase 5's eager proof and verified, outside its timed
+    span: execution is deterministic, so the records, and the proof bytes,
+    are phase 5's every time."""
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.machine.mips import execute_sharded, verify_mips_proof
+    from ziren_tpu_torch.stark import tfused
+    from ziren_tpu_torch.stark.serialize import serialize_shard_proof
+
+    eager = [serialize_shard_proof(sp) for sp in proof.shard_proofs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rates, all_stats, proofs = [], [], []
+    for i in range(3):
+        if i == 1:  # from here on the proves are warm: replays only
+            first = dict(kernels.LAUNCHES)
+            graphs = [fs for fs in tfused._MEM.values() if fs.graph is not None]
+            replays = {id(fs): fs.replays for fs in graphs}
+            kernels.reset_launches()
+        recs = records if i == 0 else execute_sharded(program, SHARD_SIZE)[1]
+        stats: dict = {}
+        t0 = time.perf_counter()
+        proofs.append(tfused.prove_shards_fused(machine, pk, recs, stats=stats))
+        torch.cuda.synchronize()
+        rates.append(FIB_CYCLES / (time.perf_counter() - t0) / 1e3)
+        all_stats.append(stats)
+    warm = launches_of("the fused path's two warm proves")
+    wrapper = {k: kernels.LAUNCHES[k] - kernels.REPLAYED[k] for k in kernels.LAUNCHES}
+    assert not any(wrapper.values()), f"a warm fused prove called a kernel's wrapper: {wrapper}"
+    want: dict = {k: {} for k in kernels.LAUNCHES}
+    for fs in graphs:
+        for name, hist in fs.histogram.items():
+            for shape, n in hist.items():
+                want[name][shape] = want[name].get(shape, 0) + n * (fs.replays - replays[id(fs)])
+    assert {k: {s: n for s, n in v.items() if n} for k, v in kernels.SHAPES.items()} == \
+        {k: {s: n for s, n in v.items() if n} for k, v in want.items()}, \
+        "the warm proves' launches are not the captures' histograms times their replays"
+    # the warm proves are checked below, so every graph has a checked replay
+    assert all(fs.replays > replays[id(fs)] for fs in graphs), \
+        "a graph was not replayed in the warm proves"
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: first[k] + warm[k] for k in kernels.LAUNCHES}
+
+    verify_s = []
+    for i, fused in enumerate(proofs):
+        got = [serialize_shard_proof(sp) for sp in fused.shard_proofs]
+        assert len(got) == len(eager) and got == eager, \
+            f"fused prove {i + 1} differs from phase 5's eager proof"
+        t0 = time.perf_counter()
+        assert verify_mips_proof(machine, vk, fused, pc_start=program.pc_start), \
+            f"fused prove {i + 1} does not verify"
+        verify_s.append(time.perf_counter() - t0)
+
+    print(f"  three proves of fibonacci({FIB_N}), core config, {len(records)} shards: "
+          f"prove-only kHz " + ", ".join(f"{r:.3f}" for r in rates)
+          + " (phase 5's eager proves beside them); each byte-equal to phase 5's eager "
+          "proof, shard for shard, and verify_mips_proof ok in "
+          + ", ".join(f"{s:.3f}" for s in verify_s) + " s", flush=True)
+    for b in all_stats[0]["built"]:
+        print(f"  a graph built: capture {b['capture_s']:.3f} s, instantiate "
+              f"{b['instantiate_s']:.3f} s, {b['nodes']} nodes, memory pool {b['pool_bytes']} "
+              f"bytes, launches recorded {b['launches']}", flush=True)
+    for i, st in enumerate(all_stats):
+        print(f"  prove {i + 1}: call s a shard (warm-up and capture, or load and replay) "
+              + ", ".join(f"{s:.3f}" for s in st["call_s"])
+              + "; replay ms on the card " + ", ".join(f"{m:.3f}" for m in st["replay_ms"])
+              + "; trace-gen wait s " + ", ".join(f"{s:.3f}" for s in st["trace_wait_s"])
+              + f"; fetch {st['fetch_s']:.3f} s, assemble {st['assemble_s']:.3f} s", flush=True)
+    print(f"  graphs held: {len(graphs)}, replays in the warm proves: "
+          f"{sum(fs.replays - replays[id(fs)] for fs in graphs)}; eager wrapper calls in them: "
+          f"{wrapper}; peak device memory allocated: {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    print(f"  launches of the first prove (warm-up, capture recorded, replays): {first}",
+          flush=True)
+    for fs in graphs:
+        busy_share(fs)
+    return launches
+
+
+def busy_share(fs) -> None:
+    """The card's busy share of one replay: kernel time from torch.profiler
+    over the replay's span from CUDA events. Only a profiler that gives no
+    device time leaves it unmeasured; a replay that fails fails the phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _fetch, (start, end) = fs()
+        torch.cuda.synchronize()
+    span_ms = start.elapsed_time(end)
+    try:
+        events = prof.key_averages()
+    except RuntimeError as e:  # a profiler that collected nothing: a measurement only
+        print(f"  busy share of a replay: not measured ({e}; the replay took "
+              f"{span_ms:.3f} ms)", flush=True)
+        return
+    busy_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
+    kernels_n = sum(e.count for e in events)
+    if not busy_us:
+        print(f"  busy share of a replay: not measured (the profiler gave no device time; "
+              f"the replay took {span_ms:.3f} ms)", flush=True)
+        return
+    print(f"  busy share of a replay of {fs.nodes} nodes: {busy_us / 1e3:.3f} ms of device "
+          f"time in {kernels_n} events over {span_ms:.3f} ms, "
+          f"{100 * busy_us / 1e3 / span_ms:.1f}% (torch.profiler)", flush=True)
 
 
 def phase_small_recursion(machine, vk, shard_proof) -> None:
@@ -468,7 +617,48 @@ def phase_recursion(program, machine, vk, proof) -> dict:
     return launches
 
 
-def phase_service() -> dict:
+def ladder_registry() -> None:
+    """Enumerate the dev-config ladder's lift + join registry on the host
+    and write it where ProverClient.compressed_prove in phase 9 loads it
+    (recursion/shape_universe.py:_registry_cache_path). The shape of
+    fibonacci(30)'s shard comes from host trace generation, as the SDK's
+    prove orders and sizes it; nothing is proved. Prints the file's path.
+    The script runs this in a process of its own, which sees no card."""
+    from ziren_tpu_torch.executor.asm import fibonacci_program
+    from ziren_tpu_torch.machine.mips import execute_sharded
+    from ziren_tpu_torch.recursion import shape_universe as su
+    from ziren_tpu_torch.sdk import ProverClient
+    from ziren_tpu_torch.stark.opts import ZirenCoreOpts
+    from ziren_tpu_torch.stark.shape import _gen_traces
+
+    client = ProverClient(config="dev", device="cpu")
+    pk, _vk = client.setup(fibonacci_program(30))
+    _ex, records = execute_sharded(pk.program, ZirenCoreOpts.auto().shard_size)
+    shapes = set()
+    for record in records:
+        traces = sorted(_gen_traces(pk.machine, record), key=lambda t: -t[1].shape[0])
+        shapes.add(tuple((c.name, t.shape[0].bit_length() - 1) for c, t in traces))
+    shapes = list(shapes)
+    su.build_full_registry(pk.machine, pk.vk, shapes, config=client._config)
+    path = su._registry_cache_path(pk.machine, pk.vk, shapes, client._config,
+                                   su.FIXED_REGISTRY_HEIGHT)
+    assert os.path.exists(path), path
+    print(path, flush=True)
+
+
+def start_ladder_registry():
+    """ladder_registry() in a process of its own, with no card in sight.
+    Returns (the process, its output file)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.ladder_registry()"],
+                            cwd=repo, env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def phase_service(registry_proc) -> dict:
     """The service path. Returns the kernels' launches: the core-config
     requests', the CLI guest's and the dev-config ladder's, counted apart."""
     from ziren_tpu_torch import kernels
@@ -625,13 +815,31 @@ def phase_service() -> dict:
           f"vkey {vkey_s:.2f} s, prove {prove_s:.2f} s (the file byte-equal to "
           f"ProverClient.prove), verify {verify_s:.2f} s", flush=True)
 
-    # the upper rungs of the ladder, dev config, one shard
+    # the upper rungs of the ladder, dev config, one shard; the registry
+    # comes from the process started with the script
+    proc, out = registry_proc
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    waited_s = time.perf_counter() - t0
+    out.seek(0)
+    log = out.read()
+    assert rc == 0, f"the ladder's registry process failed ({rc}):\n{log[-3000:]}"
+    registry_file = log.strip().splitlines()[-1]
+    assert os.path.exists(registry_file), registry_file
     kernels.reset_launches()
     small = fibonacci_program(30)
     spk, svk = dev.setup(small)
     t0 = time.perf_counter()
     compressed = dev.compressed_prove(spk)
     t1 = time.perf_counter()
+    from ziren_tpu_torch.recursion import mips_pipeline as mp
+    from ziren_tpu_torch.recursion.vk_registry import VkRegistry
+
+    cached = VkRegistry(list(np.fromfile(registry_file, dtype=np.uint32).reshape(-1, 8)),
+                        height=64)
+    rpv = [int(v) for v in compressed[2].public_values]
+    assert rpv[mp.RPV_VK_ROOT : mp.RPV_VK_ROOT + 8] == [int(v) for v in cached.root], \
+        "compressed_prove did not use the registry enumerated beforehand"
     dev.verify_compressed(compressed, svk)
     t2 = time.perf_counter()
     shrunk = dev.shrink_prove(compressed)
@@ -644,10 +852,11 @@ def phase_service() -> dict:
     t5 = time.perf_counter()
     back = wire.loads(wire.dumps({"ok": True, "result": {"compressed": compressed}}))
     dev.verify_compressed(back["result"]["compressed"], svk)  # a CompressedProve reply
-    print(f"  ProverClient(config='dev') on fibonacci(30), one shard: compressed_prove "
-          f"{t1 - t0:.2f} s (core prove, the full lift + join registry, one lift; it fits "
-          f"at the dev config only: at the core config the registry does not fit in a "
-          f"call), verify_compressed {t2 - t1:.2f} s, shrink_prove {t3 - t2:.2f} s, "
+    print(f"  ProverClient(config='dev') on fibonacci(30), one shard: the registry process "
+          f"waited for {waited_s:.2f} s (it enumerated the full lift + join registry on the "
+          f"host beside the earlier phases; at the core config it does not fit in a call); "
+          f"compressed_prove {t1 - t0:.2f} s (core prove, the registry from its file, one "
+          f"lift), verify_compressed {t2 - t1:.2f} s, shrink_prove {t3 - t2:.2f} s, "
           f"wrap_prove {t4 - t3:.2f} s (the host prover, outer_dev_config()), "
           f"verify_wrapped {t5 - t4:.2f} s; Groth16 and Plonk are not run here",
           flush=True)
@@ -656,6 +865,18 @@ def phase_service() -> dict:
 
 def main() -> None:
     dev = require_cuda()
+    registry_proc = start_ladder_registry()
+    try:
+        run(dev, registry_proc)
+    finally:
+        proc, out = registry_proc
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+
+def run(dev, registry_proc) -> None:
     started = time.perf_counter()
     seconds = {}
 
@@ -686,22 +907,27 @@ def main() -> None:
     rec = phase(3, "kernels vs plain PyTorch on the card", phase_kernels, dev)
     small = phase(4, "small shard, port vs host prover", phase_small_shard, dev)
     launches, main_path = phase(5, "main path", phase_main_path, dev)
+    program, machine, pk, vk, proof, records, grind_shape = main_path
     phase(6, "tmerkle and tntt vs the host", phase_merkle_ntt, dev)
     phase(7, "small recursion shard, port vs host prover", phase_small_recursion, *small)
-    recursion_launches = phase(8, "the recursion path", phase_recursion, *main_path)
-    service_launches = phase(9, "the service path", phase_service)
+    recursion_launches = phase(8, "the recursion path", phase_recursion, program, machine,
+                               vk, proof)
+    service_launches = phase(9, "the service path", phase_service, registry_proc)
+    fused_launches = phase(10, "the fused path", phase_fused, program, machine, pk, vk, proof,
+                           records)
     print("seconds by phase (phase 2 is the build above): "
           + ", ".join(f"{n}: {s:.1f}" for n, s in sorted(seconds.items()))
           + f"; the whole script {time.perf_counter() - started:.1f}", flush=True)
 
     def entry(name, replaces, shape):
-        # library_ms: no PyTorch call computes Poseidon2 or a Merkle level
+        # library_ms: no PyTorch call computes Poseidon2, a Merkle level or
+        # a proof-of-work search
         r = rec[name]
         ms, plain_ms, bound_ms, bound_by = r["shapes"][shape]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces,
                 "launches": launches[name] + recursion_launches[name]
-                + sum(service_launches[name]),
+                + sum(service_launches[name]) + fused_launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "shape": str(shape)}
@@ -710,6 +936,7 @@ def main() -> None:
         entry("hash_rows", "ziren_tpu/ops/jposeidon2.py:235", (1 << 17, 108)),
         entry("permute", "ziren_tpu/ops/jposeidon2.py:97", (1 << 16, 16)),
         entry("compress_levels", "ziren_tpu/ops/jpcs.py:173", (256, ())),
+        entry("grind", "ziren_tpu/ops/jchallenger.py:51", grind_shape),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,18 +72,23 @@ def test_from_host_with_pending_output():
         assert int(tc.sample()) == h.sample()
 
 
-@pytest.mark.parametrize("n_obs,bits", [(11, 8), (7, 6), (0, 5)])
+@pytest.mark.parametrize("n_obs,bits", [(11, 8), (7, 6), (0, 5), (13, 4), (18, 2)])
 def test_grind_matches_jax_and_host(n_obs, bits):
+    """The witness is a 0-d tensor on the challenger's device, as JAX's is,
+    equal to both packages' witnesses; the transcripts stay aligned."""
     rng = np.random.default_rng(4 + n_obs)
     h = DuplexChallenger()
     h.observe_slice(rng.integers(0, P, size=n_obs, dtype=np.uint32))
     jc = JChallenger.from_host(h.clone())
     tc = TChallenger.from_host(h.clone(), "cpu")
     hw = h.grind(bits)
-    assert int(jax.device_get(jc.grind(bits))) == hw
-    assert tc.grind(bits) == hw
+    jw = jc.grind(bits)
+    tw = tc.grind(bits)
+    assert int(jax.device_get(jw)) == hw
+    assert isinstance(tw, torch.Tensor) and tw.dim() == 0 and tw.device.type == "cpu"
+    assert tw.dtype == torch.int64 and int(tw) == hw
     # the transcripts stay aligned after the grind replay
-    assert int(tc.sample()) == h.sample()
+    assert _jcanon(jc.sample_mont()) == int(tc.sample()) == h.sample()
 
 
 def test_grind_is_minimal_across_batches():

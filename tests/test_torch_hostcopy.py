@@ -7,7 +7,9 @@ rewritten to relative ones and nothing else changed. Each copied file is
 held against its original here, so a repair made on one side shows up as a
 difference on the other. A few files differ by design, in the functions and
 methods BY_DESIGN names and nowhere else: stark/machine.py (the device
-branch of StarkMachine.prove goes to the torch prover and takes a `device`),
+branch of StarkMachine.prove goes to the torch prover and takes a `device`;
+under ZIREN_FUSED=1 it and `prove` go to stark/tfused.py, the port of
+stark/fused.py, as the JAX package's StarkMachine.prove goes to fused.py),
 machine/mips.py (prove_program passes `device` on), the recursion entry
 points that prove (they take `device` and pass it on to StarkMachine.prove;
 wrap_bn254 names the host prover, the only one its config has),
@@ -59,8 +61,11 @@ BY_DESIGN = {
 # module-level names that the port adds or gives another value
 OWN_DOCSTRING = {"sdk.py", "network/wire.py", "__main__.py"}
 OWN_ASSIGNS = {"network/wire.py": {"_PACKAGE"}, "guest/build.py": {"_ELF_SEARCH"}}
-# the files of the JAX package that are ported, never copied, or not yet
-# ported (the four of stark/ that need a device mesh or a compile cache)
+# the files of the JAX package that are ported, never copied, or never
+# ported: stark/fused.py is ported as stark/tfused.py (one CUDA graph per
+# shard shape), stark/aot.py stays unported by design (the jax.export disk
+# cache of fused.py's executables: a CUDA graph cannot be written to disk),
+# stark/sharded.py and stark/ici.py are not yet ported (they need a mesh)
 NOT_COPIED = {*[f"ops/j{m}.py" for m in ("challenger", "field", "merkle", "ntt", "pcs",
                                           "poseidon2")],
               *[f"stark/{m}.py" for m in ("jprover", "jfolder", "sharded", "ici", "fused",

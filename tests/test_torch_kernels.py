@@ -1,9 +1,9 @@
 """The hand-written CUDA kernels (ziren_tpu_torch.kernels) and their routing.
 
 The wrapper checks and the routing run everywhere. The kernel cases, marked
-`cuda`, need a CUDA device: they hold K1, K2 (both variants) and K3 against
-the plain PyTorch versions bit for bit and skip on a machine without one. This file imports
-no JAX, so the kernel cases also run on the card:
+`cuda`, need a CUDA device: they hold K1, K2 (both variants), K3 and K4
+against the plain PyTorch versions bit for bit and skip on a machine without
+one. This file imports no JAX, so the kernel cases also run on the card:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 """
@@ -16,6 +16,8 @@ from ziren_tpu.core import field as F
 from ziren_tpu.core import poseidon2 as hp2
 from ziren_tpu_torch import kernels
 from ziren_tpu_torch.device import require_cuda
+from ziren_tpu.core.challenger import DuplexChallenger
+from ziren_tpu_torch.ops import tchallenger as tch
 from ziren_tpu_torch.ops import tfield as tf
 from ziren_tpu_torch.ops import tposeidon2 as tp2
 from ziren_tpu_torch.stark.backend import resolve_device
@@ -47,6 +49,9 @@ def test_wrappers_reject_non_cuda(bad):
         kernels.permute(bad)
     with pytest.raises(ValueError):
         kernels.compress_levels(bad, {})
+    state = torch.zeros(16, dtype=torch.int64, device=bad.device)
+    with pytest.raises(ValueError):
+        kernels.grind(state, state[:3], 16)
 
 
 def test_router_rejects_other_devices():
@@ -143,6 +148,47 @@ def test_k1_rejects_bad_inputs(cuda):
         kernels.permute(rows[:, :8].contiguous())
 
 
+# (n_in, nb_bits): every n_in the transcript can leave and the bits of every
+# config (16 core and compressed, 4 dev, 2 outer_dev), and 0 (any witness)
+K4_CASES = [(0, 16), (1, 4), (2, 2), (3, 16), (4, 16), (5, 4), (6, 2), (7, 16), (4, 0), (2, 11)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,bits", K4_CASES)
+def test_k4_matches_plain_and_host(cuda, n_in, bits):
+    """K4's witness is the plain search's, bit for bit, and the host
+    challenger's; TChallenger.grind on a CUDA state goes through K4 and
+    leaves the transcript where the host's check_witness does."""
+    rng = np.random.default_rng(100 * n_in + bits)
+    host = DuplexChallenger()
+    host.observe_slice(rng.integers(0, F.P_INT, 8 * 3 + n_in, dtype=np.uint32))
+    tc = tch.TChallenger.from_host(host.clone(), cuda)
+    assert tc._buf_n == n_in
+    state, inputs = tc.state, tc._concat_buffer().contiguous()
+    before = kernels.LAUNCHES["grind"]
+    got = kernels.grind(state, inputs, bits)
+    assert kernels.LAUNCHES["grind"] == before + 1 and got.dim() == 0 and got.is_cuda
+    assert torch.equal(got, tch._grind(state, inputs, bits, n_in))
+    want = host.grind(bits)
+    assert int(got) == want
+    w = tc.grind(bits)
+    assert w.is_cuda and int(w) == want and kernels.LAUNCHES["grind"] == before + 2
+    assert int(tc.sample()) == host.sample()
+
+
+@pytest.mark.cuda
+def test_k4_rejects_bad_inputs(cuda):
+    state = tf.from_host(rand(16, 1), cuda)
+    with pytest.raises(ValueError):
+        kernels.grind(state, state[:8].contiguous(), 4)  # n_in must be below 8
+    with pytest.raises(ValueError):
+        kernels.grind(state, state[:2].contiguous(), 32)
+    with pytest.raises(ValueError):
+        kernels.grind(state[:8].contiguous(), state[:2].contiguous(), 4)
+    with pytest.raises(ValueError):
+        kernels.grind(state.int(), state[:2].int(), 4)
+
+
 def test_launch_counts_hold_under_threads():
     """The recursion tree proves its lifts in a thread pool, so several
     threads count launches at once: no update is lost."""
@@ -167,7 +213,7 @@ def test_launch_counts_hold_under_threads():
             t.join(timeout=120)
         assert not any(t.is_alive() for t in pool)
         assert kernels.LAUNCHES == {"hash_rows": threads * each, "permute": threads * each,
-                                    "compress_levels": 0}
+                                    "compress_levels": 0, "grind": 0}
         assert sum(kernels.SHAPES["permute"].values()) == threads * each
         assert kernels.SHAPES["hash_rows"] == {(i, 8): each for i in range(threads)}
     finally:

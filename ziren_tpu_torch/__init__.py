@@ -19,9 +19,12 @@ the imports rewritten; the device layers are ported:
   ops/tchallenger.py   duplex challenger + proof-of-work grind on device
   ops/tpcs.py          coset LDE, Merkle MMCS, opening contractions, FRI fold
   stark/tfolder.py     LogUp permutation-trace and quotient folders
-  stark/tprover.py     the per-shard device prover and proof assembly
+  stark/tprover.py     the per-shard device prover (one device body) and
+                       proof assembly
+  stark/tfused.py      the shard body as one CUDA graph per shard shape
+                       (ZIREN_FUSED=1)
   kernels.py           the hand-written CUDA kernels (csrc/poseidon2.cu):
-                       K1 hash_rows, K2 permute, K3 compress_levels
+                       K1 hash_rows, K2 permute, K3 compress_levels, K4 grind
   tools/kernel_bench.py  checks and times the kernels on a GPU
 
 Field elements are canonical int64 values in [0, p). Every function takes

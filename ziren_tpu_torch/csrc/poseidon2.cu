@@ -15,6 +15,13 @@
 // launch (the loop of ops/tpcs.py:merkle_levels, jpcs._merkle_levels in the
 // JAX package), compressing in the digests of shorter matrices where a
 // level has them.
+// K4 zt_grind is the proof-of-work grind of the Fiat-Shamir transcript, the
+// lax.while_loop of ziren_tpu/ops/jchallenger.py:_grind: the smallest
+// witness w whose duplex gives a sample with nb_bits low zero bits, found in
+// one launch and left on the device, so a shard's prove holds no host wait
+// and can be captured into one CUDA graph. It is bound by the same integer
+// pipe: (w + 1) permutations at least; its threads stop once a smaller
+// witness is known.
 //
 // What bounds them: 32-bit integer instructions. The permutation is 490
 // field products and about 1,200 field additions, all on the int32 pipe;
@@ -427,6 +434,39 @@ compress_levels_kernel(const int64_t* __restrict__ in, const Injected inj,
   }
 }
 
+// K4: one thread a candidate witness, a grid-stride loop over w = 0, 1, ...
+// below p. A thread builds [inputs, w, state past n_in] in Montgomery form,
+// permutes it, and tests the low bits of the CANONICAL word 7 (the sample
+// the transcript draws next). On a hit it lowers *best with atomicMin and
+// stops; it also stops at its first candidate above *best, so every
+// candidate below the final *best was tested and *best is the smallest
+// witness. *best is p (no witness) on entry; the wrapper resets it on the
+// same stream.
+__global__ void __launch_bounds__(THREADS)
+grind_kernel(const int64_t* __restrict__ state, const int64_t* __restrict__ inputs,
+             int n_in, uint32_t mask, unsigned long long* best) {
+  uint32_t base[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) base[i] = to_mont(i < n_in ? inputs[i] : state[i]);
+  const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * THREADS;
+  for (unsigned long long w = static_cast<unsigned long long>(blockIdx.x) * THREADS + threadIdx.x;
+       w < P64; w += stride) {
+    if (w > *reinterpret_cast<volatile unsigned long long*>(best)) return;
+    uint32_t s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = i == n_in ? to_mont(static_cast<int64_t>(w)) : base[i];
+    permute16(s);
+    if ((static_cast<uint32_t>(from_mont(s[7])) & mask) == 0u) {
+      atomicMin(best, w);
+      return;
+    }
+  }
+}
+
+// Blocks of K4: enough threads for twice the expected number of candidates
+// (2^nb_bits), at most this many blocks (8 of 128 threads on each of 132 SMs).
+constexpr long long GRIND_MAX_BLOCKS = 1056;
+
 unsigned int grid_for(long long threads) {
   return static_cast<unsigned int>((threads + THREADS - 1) / THREADS);
 }
@@ -479,5 +519,20 @@ extern "C" int zt_compress_levels(const void* in, const void* const* inj, void* 
   for (int k = 0; k < INJ_LEVELS; ++k) levels.p[k] = static_cast<const int64_t*>(inj[k]);
   compress_levels_kernel<<<1, LEVEL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(in), levels, static_cast<int64_t*>(out), h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// state: 16 canonical words; inputs: n_in < 8 canonical words (may be null
+// for n_in = 0); best: one int64 word holding p, the smallest witness on
+// return. Returns -1 for n_in or nb_bits out of range.
+extern "C" int zt_grind(const void* state, const void* inputs, int n_in, int nb_bits,
+                        void* best, void* stream) {
+  if (n_in < 0 || n_in >= 8 || nb_bits < 0 || nb_bits > 31) return -1;
+  const long long want = grid_for(2LL << nb_bits);
+  const unsigned int blocks =
+      static_cast<unsigned int>(want < GRIND_MAX_BLOCKS ? want : GRIND_MAX_BLOCKS);
+  grind_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(state), static_cast<const int64_t*>(inputs), n_in,
+      static_cast<uint32_t>((1ull << nb_bits) - 1ull), static_cast<unsigned long long*>(best));
   return static_cast<int>(cudaGetLastError());
 }

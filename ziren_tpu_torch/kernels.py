@@ -9,13 +9,20 @@ through a header generated into the build directory.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with torch.empty, launches on PyTorch's current stream without
 synchronising, raises if the launch reports an error, and adds one to its
-entry in `LAUNCHES` and to its shape's entry in `SHAPES`. There is no
-fallback: callers route CPU tensors to the plain versions in
-`ops/tposeidon2.py` and `ops/tpcs.py` themselves.
+entry in `LAUNCHES` and to its shape's entry in `SHAPES`. There
+is no fallback: callers route CPU tensors to the plain versions in
+`ops/tposeidon2.py`, `ops/tpcs.py` and `ops/tchallenger.py` themselves.
+
+Under a CUDA graph (stark/tfused.py) a wrapper runs once, at capture, and
+launches nothing then: inside `recording()` its count goes to the capture's
+histogram, and each replay adds that histogram to `LAUNCHES` and `SHAPES`
+(`credit`), and to `REPLAYED`: `LAUNCHES` less `REPLAYED` is what the
+wrappers launched themselves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -49,27 +56,57 @@ LEVELS_MAX_HEIGHT = 256
 
 # launches per entry point since the last reset_launches(), and the same
 # by shape: (n, w) for hash_rows, m for permute, (h, injected heights) for
-# compress_levels. Several host threads may launch at once (the recursion
-# tree proves its lifts in a thread pool), so the counts change under a lock.
-LAUNCHES = {"hash_rows": 0, "permute": 0, "compress_levels": 0}
+# compress_levels, (n_in, nb_bits) for grind. Several host threads may
+# launch at once (the recursion tree proves its lifts in a thread pool), so
+# the counts change under a lock.
+LAUNCHES = {"hash_rows": 0, "permute": 0, "compress_levels": 0, "grind": 0}
 SHAPES: dict = {k: {} for k in LAUNCHES}
+REPLAYED = dict.fromkeys(LAUNCHES, 0)  # the part of LAUNCHES that replays credited
 
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 _LIB: list = []
+_CAPTURE = threading.local()
 
 
 def reset_launches() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+            REPLAYED[k] = 0
             SHAPES[k].clear()
 
 
 def _count(name: str, shape) -> None:
+    hist = getattr(_CAPTURE, "hist", None)
+    if hist is not None:  # captured into a graph: launched by its replays
+        hist[name][shape] = hist[name].get(shape, 0) + 1
+        return
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
         SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """While a CUDA graph captures on this thread: the wrappers' counts go
+    to the histogram yielded, {entry: {shape: count}}, and not to LAUNCHES."""
+    hist = {k: {} for k in LAUNCHES}
+    _CAPTURE.hist = hist
+    try:
+        yield hist
+    finally:
+        _CAPTURE.hist = None
+
+
+def credit(hist: dict) -> None:
+    """One replay of a graph whose capture recorded `hist`."""
+    with _COUNT_LOCK:
+        for name, shapes in hist.items():
+            for shape, n in shapes.items():
+                LAUNCHES[name] += n
+                REPLAYED[name] += n
+                SHAPES[name][shape] = SHAPES[name].get(shape, 0) + n
 
 
 def constants_header() -> str:
@@ -148,6 +185,8 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.zt_compress_levels.argtypes = [vp, ctypes.POINTER(vp), vp, ctypes.c_int, vp]
         lib.zt_compress_levels.restype = ctypes.c_int
+        lib.zt_grind.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, vp, vp]
+        lib.zt_grind.restype = ctypes.c_int
         _LIB.append(lib)
         return lib
 
@@ -255,6 +294,34 @@ def compress_levels(digests: torch.Tensor, injected: dict) -> list:
         _raise_on(err, "compress_levels")
         _count("compress_levels", (h, tuple(sorted(injected, reverse=True))))
     return split_levels(out, h)
+
+
+def grind(state: torch.Tensor, inputs: torch.Tensor, nb_bits: int) -> torch.Tensor:
+    """K4: the smallest proof-of-work witness w >= 0 such that permuting
+    [inputs, w, state[n_in + 1:]] gives a canonical word 7 with nb_bits low
+    zero bits; state (16,), inputs (n_in,) with n_in < 8, both int64
+    canonical on one device. Returns a 0-d int64 tensor on that device (p
+    if no witness below p exists), reset and written on the current stream."""
+    for x, what in ((state, "grind (state)"), (inputs, "grind (inputs)")):
+        if not x.is_cuda:
+            raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+        if x.dtype != torch.int64 or x.dim() != 1 or not x.is_contiguous():
+            raise ValueError(f"{what}: expected a contiguous int64 vector")
+    n_in = inputs.shape[0]
+    if state.shape[0] != 16 or n_in >= 8 or inputs.device != state.device:
+        raise ValueError(f"grind: bad state {tuple(state.shape)} or inputs {tuple(inputs.shape)}")
+    if not 0 <= nb_bits <= 31:
+        raise ValueError(f"grind: bad nb_bits {nb_bits}")
+    with torch.cuda.device(state.device):
+        best = torch.full((), F.P_INT, dtype=torch.int64, device=state.device)
+        err = load().zt_grind(
+            ctypes.c_void_p(state.data_ptr()),
+            ctypes.c_void_p(inputs.data_ptr() if n_in else None),
+            n_in, nb_bits, ctypes.c_void_p(best.data_ptr()), _stream(state),
+        )
+        _raise_on(err, "grind")
+        _count("grind", (n_in, nb_bits))
+    return best
 
 
 def split_levels(flat: torch.Tensor, h: int) -> list:

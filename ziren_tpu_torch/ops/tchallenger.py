@@ -6,8 +6,9 @@ Poseidon2, 16, 8>) with the sponge state held as a device tensor. The
 buffer structure (how many values are pending, when a duplex fires) is
 host-side Python: it is fixed by the proof's shape, not by field values,
 so a prove driven through this challenger never waits on a transcript
-value, except in the proof-of-work grind, which checks one batch of
-candidates at a time.
+value. The proof-of-work grind leaves its witness on the device too: on a
+CUDA state it is K4 (kernels.grind), one launch; on a CPU state it is the
+plain batch search `_grind`, which reads one flag back a batch.
 
 Values are canonical int64 tensors: 0-d scalars, (k,) vectors, or host
 values observed through `observe_host_slice`.
@@ -15,9 +16,12 @@ values observed through `observe_host_slice`.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
+from .. import kernels
 from . import tposeidon2 as tp2
 
 WIDTH = 16
@@ -33,11 +37,13 @@ def _duplex(state: torch.Tensor, inputs: torch.Tensor, k: int) -> torch.Tensor:
     return tp2.permute(state)
 
 
-def _grind(state, inputs, nb_bits: int, n_in: int, batch: int = GRIND_BATCH) -> int:
+def _grind(state, inputs, nb_bits: int, n_in: int,
+           batch: int = GRIND_BATCH) -> torch.Tensor:
     """Smallest nonnegative witness w such that duplexing [inputs, w] gives
-    a sample with nb_bits low bits zero (mirrors DuplexChallenger.grind).
-    Candidates are tried in batches in order, and the first hit of the first
-    batch that has one is the smallest."""
+    a sample with nb_bits low bits zero (mirrors DuplexChallenger.grind), as
+    a 0-d tensor on the state's device: the plain version of K4. Candidates
+    are tried in batches in order, and the first hit of the first batch that
+    has one is the smallest; each batch reads one flag back to the host."""
     mask = (1 << nb_bits) - 1
     dev = state.device
     head = inputs.expand(batch, n_in) if n_in else None
@@ -46,11 +52,11 @@ def _grind(state, inputs, nb_bits: int, n_in: int, batch: int = GRIND_BATCH) -> 
     while True:
         cands = torch.arange(start, start + batch, dtype=torch.int64, device=dev)
         parts = ([head] if n_in else []) + [cands[:, None], tail]
-        out = tp2.permute(torch.cat(parts, dim=1))
+        out = tp2.permute_plain(torch.cat(parts, dim=1))
         hits = ((out[:, RATE - 1] & mask) == 0).to(torch.int32)
         found, idx = torch.max(hits, dim=0)  # first maximal index
         if int(found):
-            return start + int(idx)
+            return idx + start
         start += batch
 
 
@@ -84,6 +90,13 @@ class TChallenger:
             assert list(host_ch.output_buffer) == [
                 int(v) for v in host_ch.state[: c._out_len]
             ]
+        return c
+
+    def clone(self) -> "TChallenger":
+        """The same transcript position. The tensors are shared: no
+        operation of the challenger changes one in place."""
+        c = copy.copy(self)
+        c.input_buffer = list(self.input_buffer)
         return c
 
     def _concat_buffer(self) -> torch.Tensor:
@@ -152,13 +165,17 @@ class TChallenger:
         assert nb_bits <= NUM_BITS
         return self.sample() & ((1 << nb_bits) - 1)
 
-    def grind(self, nb_bits: int) -> int:
-        """Proof of work: returns the smallest witness (a host int, read
-        back batch by batch) and replays observe(witness) + sample_bits on
-        the transcript."""
+    def grind(self, nb_bits: int) -> torch.Tensor:
+        """Proof of work: returns the smallest witness as a 0-d device
+        tensor (K4 on a CUDA state, `_grind` on a CPU one) and replays
+        observe(witness) + sample_bits on the transcript."""
         n_in = self._buf_n
         assert n_in < RATE
-        w = _grind(self.state, self._concat_buffer(), nb_bits, n_in)
-        self.observe(torch.tensor(w, dtype=torch.int64, device=self.device))
+        inputs = self._concat_buffer()
+        if tp2._on_cuda(self.state):
+            w = kernels.grind(self.state, inputs.contiguous(), nb_bits)
+        else:
+            w = _grind(self.state, inputs, nb_bits, n_in)
+        self.observe(w)
         self.sample_bits(nb_bits)  # transcript replay of check_witness
         return w

@@ -28,15 +28,29 @@ W = 3  # x^4 = W
 _CONSTS: dict = {}
 
 
+_CONSTS_MAX = 4096
+
+
 def const(key, build, device) -> torch.Tensor:
-    """Small per-device constant tensors built once from host numpy."""
+    """Small per-device constant tensors built once from host numpy. Past
+    _CONSTS_MAX entries the oldest quarter goes (a CUDA graph that reads
+    one keeps its own reference)."""
     k = (key, torch.device(device))
     v = _CONSTS.get(k)
     if v is None:
-        if len(_CONSTS) > 512:
-            _CONSTS.clear()
+        if len(_CONSTS) >= _CONSTS_MAX:
+            for old in list(_CONSTS)[: _CONSTS_MAX // 4]:
+                del _CONSTS[old]
         v = _CONSTS[k] = torch.as_tensor(np.asarray(build()), device=device)
     return v
+
+
+def index(arr, device) -> torch.Tensor:
+    """A host-built int64 array on `device`, uploaded once per content (the
+    gather indices a shard's shape fixes): after the first prove of a shape
+    its operations copy nothing from the host."""
+    a = np.ascontiguousarray(arr, dtype=np.int64)
+    return const(("index", a.shape, a.tobytes()), lambda: a, device)
 
 
 def from_host(x, device) -> torch.Tensor:

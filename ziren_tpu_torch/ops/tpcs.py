@@ -241,7 +241,7 @@ def commit(domains_and_mats, log_blowup: int):
         cat = torch.cat([brs[g2] for g2 in gs], dim=1)
         flat.sort(key=lambda t: t[0])
         colperm = np.concatenate([np.arange(o, o + w) for _i, w, o in flat])
-        tree_mats.append(cat[:, torch.as_tensor(colperm, device=cat.device)])
+        tree_mats.append(cat[:, tf.index(colperm, cat.device)])
         tree_members.append([(i, w) for i, w, _o in flat])
     tree = merkle_commit(tree_mats, tree_members)
     data = DevProverData(domains, widths, group_of, group_members,

@@ -18,12 +18,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from . import tfused
 from .backend import resolve_device
 from .chip import Chip
 from .proof import MachineProof
 from .prover import prove_shard
-from .shape import estimate_targets, fix_shape, generate_fixed
-from .tprover import dispatch_shard, finish
+from .shape import fix_shape
+from .tprover import dispatch_shard, finish, shard_traces
 from .verifier import verify_shard, VerificationError
 
 
@@ -116,6 +117,8 @@ class StarkMachine:
         (stark/prover.py), whose shards prove concurrently in a thread pool
         (numpy and the native kernels release the GIL). A config that is
         not device_capable (the outer BN254 config) takes "host" only.
+        Under ZIREN_FUSED=1 a torch device proves through one CUDA graph
+        per shard shape (stark/tfused.py), every shard padded.
 
         fix_shapes=True pads every shard to one batch-wide shape
         (stark/shape.py)."""
@@ -170,7 +173,9 @@ def prove(machine, pk, records, *, device=None, fix_shapes: bool = True,
           stats: dict | None = None) -> MachineProof:
     """Prove every shard with the torch shard prover on `device`: None is
     the GPU (and raises without one), "cpu" runs the plain PyTorch versions
-    of the kernels. The device branch of StarkMachine.prove.
+    of the kernels. The device branch of StarkMachine.prove. Under
+    ZIREN_FUSED=1 (tfused.enabled()) it is tfused.prove_shards_fused: one
+    CUDA graph per shard shape, replayed.
 
     fix_shapes pads every shard to one batch-wide shape (stark/shape.py).
     When the cost model gives the targets without trace generation, shards
@@ -178,36 +183,19 @@ def prove(machine, pk, records, *, device=None, fix_shapes: bool = True,
     Every shard's proof comes back in one device-to-host copy at the end.
 
     `stats`, when given, receives host wall seconds per phase: trace-gen
-    waits and dispatches per shard (a dispatch includes the device time up
-    to its proof-of-work grind), the fetch and the assembly."""
+    waits and dispatches per shard (a dispatch issues the shard's device
+    work without waiting for it), the fetch and the assembly."""
     device = resolve_device(device)
-    targets = None
-    if fix_shapes and len(records) > 1:
-        targets = estimate_targets(machine, records)
-        if targets is None:
-            fix_shape(machine, records)
-
+    if tfused.enabled():
+        return tfused.prove_shards_fused(machine, pk, records, device=device, stats=stats)
     base = machine.config.challenger()
     pk.vk.observe_into(base)
     waits, dispatch_s, dispatches = [], [], []
-
-    def run(r):
+    for r, wait in shard_traces(machine, records, fix_shapes):
+        waits.append(wait)
         t0 = time.perf_counter()
         dispatches.append(dispatch_shard(machine, pk, r, base.clone(), device))
         dispatch_s.append(time.perf_counter() - t0)
-
-    if targets is not None:
-        workers = min(len(records), os.cpu_count() or 4)
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            futs = [pool.submit(generate_fixed, machine, r, targets) for r in records]
-            for fut, r in zip(futs, records):
-                t0 = time.perf_counter()
-                fut.result()
-                waits.append(time.perf_counter() - t0)
-                run(r)
-    else:
-        for r in records:
-            run(r)
 
     t0 = time.perf_counter()
     flats = [d["fetch"] for d in dispatches]

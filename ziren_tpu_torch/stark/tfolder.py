@@ -4,7 +4,10 @@ The same duck-typed `air.eval(builder)` pass that drives the host folders
 (stark/folder.py) runs here with values backed by canonical int64
 tensors. It runs eagerly: each FV operation is one to six tensor ops.
 Constants stay Python ints, so they travel as kernel arguments and need no
-host-to-device copy.
+host-to-device copy. What differs from shard to shard comes from the
+device: the public values and the global cumulative sum are 0-d views of
+device vectors, so the same operations, captured once into a CUDA graph
+(stark/tfused.py), serve every shard of a shape.
 
   * perm_trace(chip, ...)  -> (perm trace (n, width*4), cumulative sum (4,))
   * quotient(chip, ...)    -> quotient evaluations (qn, 4), divided by Z_H
@@ -39,7 +42,7 @@ class _TorchNumericBase:
         v = np.asarray(x)
         if v.ndim == 0:
             return FV(self, int(v) % P, False)
-        return FV(self, torch.as_tensor(v.astype(np.int64) % P, device=self.device), False)
+        return FV(self, tf.index(v.astype(np.int64) % P, self.device), False)
 
     def lift_ext(self, a4):
         return FV(self, a4, True)
@@ -74,6 +77,14 @@ class _TorchNumericBase:
         return FV(self, (-a.a) % P, a.ext)
 
 
+def _values(fl, vals):
+    """FVs of the public values or of a global sum: 0-d views of a device
+    vector (what the prover passes), or constants from host ints."""
+    if isinstance(vals, torch.Tensor):
+        return [FV(fl, v, False) for v in vals.unbind(0)]
+    return [FV(fl, int(v) % P, False) for v in vals]
+
+
 def _columns(m: torch.Tensor):
     """(n, w) -> its columns as contiguous rows of the (w, n) transpose."""
     return m.t().contiguous()
@@ -95,7 +106,7 @@ class TorchTraceFolder(_TorchNumericBase, _Builder):
         mc = _columns(main)
         self.main_local = mk(mc)
         self.main_next = mk(mc.roll(-1, 1))
-        self.public_values = [FV(self, int(v) % P, False) for v in public_values]
+        self.public_values = _values(self, public_values)
         self.is_first_row = FV(self, 0, False)
         self.is_last_row = FV(self, 0, False)
         self.is_transition = FV(self, 0, False)
@@ -109,7 +120,8 @@ def perm_trace(chip, main, prep, public_values, alpha, beta):
     alpha + kind + sum_j beta^(j+1) v_j is stacked into one (L, n, 4)
     tensor and inverted at once; sends add and receives subtract their
     multiplicity over the fingerprint, batch_size lookups per column; the
-    last column is the running sum. Returns (trace (n, width*4), cumsum)."""
+    last column is the running sum. public_values: a (k,) device vector or
+    host ints. Returns (trace (n, width*4), cumsum)."""
     n = main.shape[0]
     dev = main.device
     fl = TorchTraceFolder(prep, main, public_values)
@@ -183,10 +195,8 @@ class TorchQuotientFolder(_TorchNumericBase, _Builder):
         self.prep_next = mk(prep_next)
         self.main_local = mk(main_local)
         self.main_next = mk(main_next)
-        self.public_values = [FV(self, int(v) % P, False) for v in public_values]
-        self.global_cumulative_sum = [
-            FV(self, int(v) % P, False) for v in global_cumulative_sum
-        ]
+        self.public_values = _values(self, public_values)
+        self.global_cumulative_sum = _values(self, global_cumulative_sum)
         self.is_first_row = FV(self, sels["is_first_row"], False)
         self.is_last_row = FV(self, sels["is_last_row"], False)
         self.is_transition = FV(self, sels["is_transition"], False)
@@ -225,7 +235,8 @@ def quotient(chip, next_step, prep_q, main_q, perm_q, sels, public_values,
     every constraint folded with reversed alpha powers, divided by Z_H.
     alphas_rev may be longer than the chip's constraint count (one shared
     table per shard): its tail is used. The next row is the shift by
-    next_step = qn / n."""
+    next_step = qn / n. public_values (k,) and global_cumsum (14,): device
+    vectors or host ints."""
     qn = main_q.shape[0]
     alphas = alphas_rev[alphas_rev.shape[0] - chip.num_constraints :]
     pc = _columns(prep_q)
@@ -278,7 +289,7 @@ def selectors_on_coset(trace_log_n: int, trace_shift: int, coset_log_n: int,
         "is_transition": last_den,
         "inv_zeroifier": tf.minv(z_h),
     }
-    if len(_SELECTORS) > 64:
-        _SELECTORS.clear()
+    if len(_SELECTORS) >= 64:  # the oldest goes; a CUDA graph keeps its own
+        _SELECTORS.pop(next(iter(_SELECTORS)))
     _SELECTORS[key] = sels
     return sels

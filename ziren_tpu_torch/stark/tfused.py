@@ -1,0 +1,244 @@
+"""Whole-shard prover as ONE CUDA graph per (machine, shard shape, device)
+(counterpart of stark/fused.py).
+
+The eager path (stark/tprover.py:dispatch_shard) issues every operation of
+a shard from Python, some 55,000 launches, and the card waits on that
+Python most of the time. Here the same device body (tprover.prove_body) is
+captured once per (machine, shape, device) into a torch.cuda.CUDAGraph and
+replayed for every shard of that shape: a shard is a copy of its traces and
+public values into the graph's static input buffers, one replay, and a
+clone of the static fetch vector. The grind is K4, so nothing in the body
+waits on the host. The proofs come back in one device-to-host copy at the
+end and are assembled by tprover.finish: byte-identical to the eager path
+and to the host prover on the same records.
+
+Capture follows a warm-up: the body runs once eagerly on the first shard of
+a shape (that run is this shard's proof), which fills every cache the body
+reads (device_pk, the constant and index tensors, the selectors); the graph
+then keeps a reference to each of them. A capture or an instantiation that
+fails raises: there is no fallback to the eager path.
+
+On the CPU (device="cpu", which a caller has to name) there is no capture:
+the body runs over the same static buffers at each call.
+
+ZIREN_FUSED=1 routes StarkMachine.prove and stark.machine.prove here, as
+it routes the JAX package's StarkMachine.prove to fused.py. A CUDA graph
+cannot be written to disk, so fused.py's jax.export cache (aot.py) has no
+counterpart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops import tfield as tf
+from ..ops.tchallenger import TChallenger
+from . import tfolder, tprover
+from .backend import resolve_device
+from .proof import MachineProof
+
+
+def enabled() -> bool:
+    """Opt-in (ZIREN_FUSED=1); off by default, as in the JAX package."""
+    return os.environ.get("ZIREN_FUSED") == "1"
+
+
+def _machine_key(machine, pk, chips, trace_domains, device):
+    fri = machine.config.fri
+    return (
+        tuple((c.name, d.log_n) for c, d in zip(chips, trace_domains)),
+        machine.num_public_values,
+        fri.log_blowup, fri.num_queries, fri.proof_of_work_bits,
+        getattr(machine.config, "commit_kind", "kb"),
+        np.asarray(pk.vk.commit, np.uint32).tobytes(),
+        tuple(int(x) for x in pk.vk.extra_observations),
+        str(device),
+    )
+
+
+def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The node count of a captured, kept graph (cuGraphGetNodes from
+    libcuda on its cudaGraph_t)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                               ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed with error {err}")
+    return int(n.value)
+
+
+class _FusedShard:
+    """One (machine, shape, device): the static input buffers (the mains in
+    chip order, the public values, the post-vk transcript), and on a CUDA
+    device the graph that proves the shard in them, its static fetch
+    output and the capture's launch histogram. `fill` loads a shard,
+    calling the object proves it and returns a fresh fetch vector."""
+
+    def __init__(self, machine, pk, chips, trace_domains, traces, public_values, device):
+        self.machine, self.pk = machine, pk
+        self.chips, self.trace_domains = chips, trace_domains
+        self.device = device
+        self.mains = [tf.from_host(t, device) for t in traces]
+        self.pv = tprover.pv_tensor(public_values, device)
+        base = machine.config.challenger()
+        pk.vk.observe_into(base)
+        self.ch = TChallenger.from_host(base, device)
+        self.graph = None
+        self.fetch = None
+        self.meta = None
+        self.histogram = None
+        self.keep = ()
+        self.capture_s = self.instantiate_s = 0.0
+        self.nodes = self.pool_bytes = self.replays = 0
+        self.lock = threading.Lock()  # one fill and replay at a time
+
+    def _body(self):
+        return tprover.prove_body(self.machine, self.pk, self.chips, self.trace_domains,
+                                  self.mains, self.pv, self.ch.clone())
+
+    def fill(self, traces, public_values) -> None:
+        """Copy a shard's inputs into the static buffers, on the current
+        stream (the one the replay runs on); the host arrays are uploaded
+        first by a copy that returns only when it is done."""
+        for buf, t in zip(self.mains, traces):
+            buf.copy_(tf.from_host(t, self.device))
+        self.pv.copy_(tprover.pv_tensor(public_values, self.device))
+
+    def warm_and_capture(self) -> torch.Tensor:
+        """Prove the shard in the buffers eagerly (the warm-up; its fetch
+        vector is returned), then, on a CUDA device, capture the body into
+        a graph and instantiate it."""
+        fetch, self.meta = self._body()
+        if self.device.type != "cuda":
+            return fetch
+        torch.cuda.synchronize(self.device)
+        # what a replay reads outside the graph's pool stays alive with it:
+        # the warm-up has just filled the caches with all of it
+        self.keep = (list(tf._CONSTS.values()), list(tfolder._SELECTORS.values()),
+                     tprover.device_pk(self.machine, self.pk, self.device))
+        torch.cuda.empty_cache()  # as the capture does first: the pool is what it adds
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        # thread_local: lifts of the recursion tree prove in a thread pool,
+        # and another thread's eager work must not break this capture
+        with kernels.recording() as hist:
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device),
+                                  capture_error_mode="thread_local"):
+                self.fetch, meta = self._body()
+        self.capture_s = time.perf_counter() - t0
+        assert meta == self.meta, "the captured body differs from the warm-up"
+        self.nodes = _graph_nodes(graph)
+        t0 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize(self.device)
+        self.instantiate_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+        self.graph, self.histogram = graph, hist
+        return fetch
+
+    def __call__(self):
+        """(the fetch vector, CUDA events around the replay or None)."""
+        if self.graph is None:
+            return self._body()[0], None
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        events[0].record()
+        self.graph.replay()
+        events[1].record()
+        self.replays += 1
+        kernels.credit(self.histogram)
+        return self.fetch.clone(), events  # cloned before the next replay overwrites it
+
+
+_MEM: dict = {}
+_MEM_MAX = 4  # graphs kept: each holds its memory pool
+# Held while a _FusedShard is built (warm-up and capture): a shape that
+# several threads meet first (the recursion pool's lifts) is built once, and
+# no two captures run at once in the process.
+_MEM_LOCK = threading.Lock()
+
+
+def get_fused_fn(machine, pk, chips, trace_domains, traces, public_values, device):
+    """Prove one shard through the _FusedShard of its (machine, shape,
+    device). Returns (the _FusedShard, whether this call built it, the
+    shard's fetch vector, the CUDA events around its replay or None). The
+    first shard of a shape builds it: the warm-up proves that shard and the
+    capture follows (a CUDA device); later shards are loaded into its
+    buffers and replay."""
+    key = _machine_key(machine, pk, chips, trace_domains, device)
+    with _MEM_LOCK:
+        fs = _MEM.pop(key, None)
+        built = fs is None
+        if built:
+            fs = _FusedShard(machine, pk, chips, trace_domains, traces, public_values, device)
+            fetch, events = fs.warm_and_capture(), None
+        _MEM[key] = fs  # the newest last
+        while len(_MEM) > _MEM_MAX:
+            _MEM.pop(next(iter(_MEM)))
+    if not built:
+        with fs.lock:
+            fs.fill(traces, public_values)
+            fetch, events = fs()
+    return fs, built, fetch, events
+
+
+def prove_shards_fused(machine, pk, records, device=None,
+                       stats: dict | None = None) -> MachineProof:
+    """Prove `records` through one graph per shard shape. Every shard is
+    padded to the batch-wide shape (the trace pipeline of stark/machine.py:
+    prove with fix_shapes=True), and shards group by chip-set signature, as
+    in fused.py: each group captures once and replays for each of its
+    shards. One device-to-host copy at the end, then tprover.finish per
+    shard.
+
+    `device`: None is the GPU and raises without one; "cpu" runs the body
+    without capture. `stats`, when given, receives per shard the trace-gen
+    wait and the host seconds of its call; the graphs this call built
+    (capture and instantiate seconds, nodes, pool bytes, launches recorded);
+    the device milliseconds of each replay (CUDA events); fetch and
+    assembly seconds."""
+    device = resolve_device(device)
+    assert len(records) >= 1
+    shards, built_now, waits, call_s, replay_events = [], [], [], [], []
+    for record, wait in tprover.shard_traces(machine, records, fix_shapes=True):
+        chips, traces, trace_domains, public_values = tprover.shard_layout(machine, record)
+        t0 = time.perf_counter()
+        fs, built, fetch, events = get_fused_fn(machine, pk, chips, trace_domains, traces,
+                                                public_values, device)
+        call_s.append(time.perf_counter() - t0)
+        waits.append(wait)
+        if built:
+            built_now.append(fs)
+        if events is not None:
+            replay_events.append(events)
+        shards.append((fs, fetch, {"chips": chips, "trace_domains": trace_domains,
+                                   "public_values": public_values,
+                                   "fri": machine.config.fri}))
+
+    t0 = time.perf_counter()
+    fetched = torch.cat([fetch for _fs, fetch, _d in shards]).cpu().numpy()
+    t1 = time.perf_counter()
+    proofs, off = [], 0
+    for fs, fetch, d in shards:
+        d["meta"] = fs.meta
+        proofs.append(tprover.finish(pk, d, fetched[off : off + fetch.numel()]))
+        off += fetch.numel()
+    if stats is not None:
+        stats.update(
+            trace_wait_s=waits, call_s=call_s, fetch_s=t1 - t0,
+            assemble_s=time.perf_counter() - t1,
+            built=[{"capture_s": fs.capture_s, "instantiate_s": fs.instantiate_s,
+                    "nodes": fs.nodes, "pool_bytes": fs.pool_bytes,
+                    "launches": {k: sum(v.values()) for k, v in (fs.histogram or {}).items()}}
+                   for fs in built_now],
+            replay_ms=[a.elapsed_time(b) for a, b in replay_events],
+        )
+    return MachineProof(proofs)

@@ -5,13 +5,21 @@ trace generation and the final proof assembly.
 
 The transcript lives on the device (ops/tchallenger.py) and its buffer
 structure is fixed by the proof's shape, so a shard is a stream of device
-work with one wait inside the proof-of-work grind and one fetch of the
-finished proof at the end. Proofs are bit-identical to stark/prover.py.
+work with no host wait (the proof-of-work grind is K4) and one fetch of the
+finished proof at the end. A shard is two parts: the host part
+(`shard_layout`: traces, chip order, domains) and the device body
+(`prove_body`), which reads only device tensors (the mains, the public
+values, the post-vk transcript) and returns the fetch vector. The eager
+path (`dispatch_shard`) and the CUDA graph of stark/tfused.py run the same
+body. Proofs are bit-identical to stark/prover.py.
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -28,6 +36,7 @@ from ..ops import tfield as tf
 from ..ops import tpcs
 from ..ops.tchallenger import TChallenger
 from . import tfolder
+from .shape import estimate_targets, fix_shape, generate_fixed
 
 P = tf.P
 
@@ -123,6 +132,30 @@ def _device_pk(machine, pk, device):
 # ---------------------------------------------------------------------------
 
 
+def shard_traces(machine, records, fix_shapes: bool):
+    """Yield (record, seconds waited for its traces) in order, each record's
+    traces generated. fix_shapes pads every shard to one batch-wide shape
+    (stark/shape.py); when the cost model gives the targets without trace
+    generation, shards generate their traces in a thread pool while the
+    caller proves the earlier ones."""
+    targets = None
+    if fix_shapes and len(records) > 1:
+        targets = estimate_targets(machine, records)
+        if targets is None:
+            fix_shape(machine, records)
+    if targets is None:
+        for r in records:
+            yield r, 0.0
+        return
+    workers = min(len(records), os.cpu_count() or 4)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futs = [pool.submit(generate_fixed, machine, r, targets) for r in records]
+        for fut, r in zip(futs, records):
+            t0 = time.perf_counter()
+            fut.result()
+            yield r, time.perf_counter() - t0
+
+
 def _named_traces(machine, record):
     named = getattr(record, "_fixed_traces", None)
     if named is not None:
@@ -140,40 +173,65 @@ def _named_traces(machine, record):
     return [(c, c.air.generate_trace(record, record)) for c in chips]
 
 
-def dispatch_shard(machine, pk, record, challenger, device):
-    """Issue every device operation of one shard's proof and return
-    {"fetch": device vector, ...host metadata} without waiting for the
-    device (the grind excepted). `challenger` is the post-vk host
-    challenger clone; its state is uploaded once."""
-    device = torch.device(device)
-    config = machine.config
-    fri = config.fri
-    log_blowup = fri.log_blowup
-
+def shard_layout(machine, record):
+    """The host part of a shard: (chips tallest first, their host traces,
+    their trace domains, the public values as ints). Everything but the
+    traces' values and the public values is fixed by the shard's shape."""
     named_traces = _named_traces(machine, record)
     named_traces.sort(key=lambda t: -t[1].shape[0])
     chips = [c for c, _ in named_traces]
     traces = [t for _, t in named_traces]
-    pv = record.public_values
-    public_values = pv.to_list() if hasattr(pv, "to_list") else list(pv)
-    pv_np = np.asarray(public_values, dtype=np.uint32)
-
-    mains = [tf.from_host(t, device) for t in traces]
-    prep_data, prep_dev = device_pk(machine, pk, device)
-    pcs_host = config.pcs
+    pcs_host = machine.config.pcs
     trace_domains = [pcs_host.natural_domain_for_degree(t.shape[0]) for t in traces]
+    pv = record.public_values
+    public_values = [int(v) for v in (pv.to_list() if hasattr(pv, "to_list") else pv)]
+    return chips, traces, trace_domains, public_values
+
+
+def pv_tensor(public_values, device) -> torch.Tensor:
+    """The public values as a (k,) int64 device vector, words as given."""
+    return torch.from_numpy(np.asarray(public_values, np.int64).reshape(-1)).to(device)
+
+
+def dispatch_shard(machine, pk, record, challenger, device):
+    """Issue every device operation of one shard's proof and return
+    {"fetch": device vector, ...host metadata} without waiting for the
+    device. `challenger` is the post-vk host challenger clone."""
+    device = torch.device(device)
+    chips, traces, trace_domains, public_values = shard_layout(machine, record)
+    mains = [tf.from_host(t, device) for t in traces]
+    pv = pv_tensor(public_values, device)
+    ch = TChallenger.from_host(challenger, device)
+    fetch, meta = prove_body(machine, pk, chips, trace_domains, mains, pv, ch)
+    return {"fetch": fetch, "meta": meta, "chips": chips, "trace_domains": trace_domains,
+            "public_values": public_values, "fri": machine.config.fri}
+
+
+def prove_body(machine, pk, chips, trace_domains, mains, pv, ch):
+    """The device body of a shard's proof. It reads only device tensors:
+    `mains` (the traces in chip order), `pv` (the public values, (k,)) and
+    the transcript `ch` (a TChallenger after the vk, which it advances).
+    Its operations depend on the shape alone, and once the caches are warm
+    (device_pk, the constant and index tensors, the selectors) it copies
+    nothing from the host and never waits on the device. Returns (the fetch
+    vector, {"fetch_meta", "rounds_meta", "has_prep"})."""
+    device = pv.device
+    fri = machine.config.fri
+    log_blowup = fri.log_blowup
+
+    prep_data, prep_dev = device_pk(machine, pk, device)
     main_commit, main_data = tpcs.commit(list(zip(trace_domains, mains)), log_blowup)
 
-    ch = TChallenger.from_host(challenger, device)
-    ch.observe_host_slice(pv_np)
+    ch.observe_vec(pv)
     ch.observe_vec(main_commit)
     alpha = ch.sample_ext()
     beta = ch.sample_ext()
 
+    pv_folded = pv % P  # the transcript takes the words as given, the folders reduced
     perm_flats, cumsums = [], []
     for chip, main in zip(chips, mains):
         flat, cum = tfolder.perm_trace(
-            chip, main, prep_dev.get(chip.name), public_values, alpha, beta
+            chip, main, prep_dev.get(chip.name), pv_folded, alpha, beta
         )
         perm_flats.append(flat)
         cumsums.append(cum)
@@ -182,15 +240,16 @@ def dispatch_shard(machine, pk, record, challenger, device):
     )
     ch.observe_vec(perm_commit)
 
+    # a Global chip's sum is the last row's last 14 columns of its trace
     global_sums = []
-    for chip, trace, cum in zip(chips, traces, cumsums):
+    for chip, main, cum in zip(chips, mains, cumsums):
         if chip.commit_scope.name == "Global":
-            gsum = trace[-1, -14:].astype(np.uint32)
+            gsum = main[-1, -14:]
         else:
-            gsum = np.zeros(14, dtype=np.uint32)
+            gsum = torch.zeros(14, dtype=torch.int64, device=device)
         global_sums.append(gsum)
         ch.observe_vec(cum)
-        ch.observe_host_slice(gsum)
+        ch.observe_vec(gsum)
 
     alpha_q = ch.sample_ext()
 
@@ -220,7 +279,7 @@ def dispatch_shard(machine, pk, record, challenger, device):
             tpcs.evals_on_domain(main_data, i, qdom),
             tpcs.evals_on_domain(perm_data, i, qdom),
             sels,
-            public_values,
+            pv_folded,
             apows_all,
             (alpha, beta),
             cumsums[i],
@@ -270,9 +329,11 @@ def dispatch_shard(machine, pk, record, challenger, device):
         "perm": perm_commit,
         "quot": quotient_commit,
         "cumsums": list(cumsums),
+        "gsums": global_sums,
         "opened": dev_out["opened_cat"],
         "fri_commits": list(dev_out["layer_roots"]),
         "final": dev_out["final"],
+        "pow": dev_out["pow_witness"],
         "round_rows": [list(rows) for rows in dev_out["round_rows"]],
         "round_paths": list(dev_out["round_paths"]),
         "layer_pairs": list(dev_out["layer_pairs"]),
@@ -283,27 +344,19 @@ def dispatch_shard(machine, pk, record, challenger, device):
         for data, points in open_rounds
     ]
     fetch_flat, fetch_meta = flatten_fetch(to_fetch)
-    return {
-        "fetch": fetch_flat,
-        "fetch_meta": fetch_meta,
-        "pow_witness": dev_out["pow_witness"],
-        "chips": chips,
-        "trace_domains": trace_domains,
-        "rounds_meta": rounds_meta,
-        "fri": fri,
-        "public_values": public_values,
-        "global_sums": global_sums,
-        "has_prep": prep_data is not None,
-    }
+    return fetch_flat, {"fetch_meta": fetch_meta, "rounds_meta": rounds_meta,
+                        "has_prep": prep_data is not None}
 
 
 def finish(pk, d, got) -> ShardProof:
     """Host assembly from a dispatched shard's fetched flat vector."""
-    tree = unflatten_fetch(got, d["fetch_meta"])
-    tree["pow"] = d["pow_witness"]
+    meta = d["meta"]
+    tree = unflatten_fetch(got, meta["fetch_meta"])
+    assert int(tree["pow"]) < P, "no proof-of-work witness below p"
     return assemble_proof(
-        pk, d["chips"], d["trace_domains"], d["rounds_meta"], d["fri"], tree,
-        d["public_values"], d["global_sums"], has_prep=d["has_prep"],
+        pk, d["chips"], d["trace_domains"], meta["rounds_meta"], d["fri"], tree,
+        d["public_values"], [np.asarray(g, np.uint32) for g in tree["gsums"]],
+        has_prep=meta["has_prep"],
     )
 
 
@@ -426,7 +479,7 @@ def assemble_proof(
 
 def dev_open(fri, log_blowup, rounds, ch):
     """rounds: [(DevProverData, [[(tag, point) ...] per matrix])].
-    Returns a dict of device tensors (and the host pow witness)."""
+    Returns a dict of device tensors, the pow witness among them."""
     alpha = ch.sample_ext()
 
     # dedupe evaluation points by structural tag (zeta / zeta*g_logn)
@@ -546,7 +599,7 @@ def _open_stage_grouped(rounds, sig, upts, alpha, log_blowup):
                         base = ap_off[(r, i, u)]
                         idx[off : off + w] = np.arange(base, base + w)
                     off += w
-                ap = apows_z[torch.as_tensor(idx, device=dev)]
+                ap = apows_z[tf.index(idx, dev)]
                 acc = _ro_step(glde, ap, ys, inv_t[ik])
                 ro[lde_log] = acc if ro[lde_log] is None else tf.madd(ro[lde_log], acc)
 
@@ -564,7 +617,7 @@ def _open_stage_grouped(rounds, sig, upts, alpha, log_blowup):
         grouped_cat = torch.cat(grouped_blocks)
     else:
         grouped_cat = torch.zeros((0, 4), dtype=torch.int64, device=dev)
-    opened_cat = grouped_cat[torch.as_tensor(perm, device=dev)]
+    opened_cat = grouped_cat[tf.index(perm, dev)]
 
     ro_vals = tuple(
         ro[l] if ro[l] is not None

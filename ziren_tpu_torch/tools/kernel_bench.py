@@ -11,7 +11,8 @@ the bound
     max(permutations * 1960 multiplies / 16.7e12 per s,
         (input + output bytes as int64) / 3.35e12 per s)
 
-where a row of width w is ceil(w / 8) permutations and a state is one. An
+where a row of width w is ceil(w / 8) permutations, a state is one and a
+proof-of-work grind (K4, chip_smoke.py phase 3) is witness + 1. An
 input smaller than the 50 MB L2 is timed over rotating copies that exceed
 it together. `--parent DIR` names an unpacked earlier tree of this
 repository: its kernels are timed in a subprocess before and after this
@@ -65,6 +66,11 @@ def k2_bound(m: int) -> tuple:
 def k3_bound(h: int, injected: dict) -> tuple:
     inj = sum(injected)
     return bound_ms(h - 1 + inj, 8 * 8 * (h + inj + h - 1))
+
+
+def k4_bound(witness: int, n_in: int) -> tuple:
+    """K4 permutes every candidate up to the witness: witness + 1 at least."""
+    return bound_ms(witness + 1, 8 * (16 + n_in + 1))
 
 
 def cuda_ms(fn, inputs: list, reps: int) -> float:
