@@ -75,7 +75,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      must equal each graph's capture histogram times its replays. Reports
      the rate of each prove, capture, instantiate and replay seconds, graph
      nodes, the graph's memory pool, peak device memory, launches by kernel
-     and shape, and the card's busy share of a replay (torch.profiler).
+     and shape, and the card's busy share of a replay (torch.profiler);
+ 11. the precompile path (ziren_tpu_torch/tools/precompile_programs.py):
+     the four grouped programs, which call every precompile of the machine
+     (the 35 chips a fibonacci shard leaves out), each proved on the card
+     at the core config through ziren_tpu_torch.stark.machine.prove,
+     byte-equal to the host prover's proof of the same records (made by a
+     process started with the script, group_host_proofs), and verified; the
+     SHA-256 and Keccak-256 chains of CHAIN_N rounds at the core config,
+     each executed once and proved once eagerly (which pays the host trace
+     generation) and twice through the fused path on the traces the script
+     holds from it (held_traces: the first builds the graphs, the second
+     replays them and makes no eager wrapper call), every proof byte-equal
+     to the eager one and verified,
+     the committed digest the expected one, and the SHA chain with a
+     standalone precompile shard (no Cpu). Reports the deferral threshold,
+     cycles, shards and each shard's chips and heights, the rate, per
+     shard the trace-generation wait and the dispatch or replay seconds,
+     fetch, assembly, host trace-generation seconds by chip, peak device
+     memory, launches by kernel and shape, each graph's nodes, capture,
+     instantiate, pool bytes and busy share, and KeccakSponge's share of
+     its shard's eager launches.
 
 The script needs one CUDA card. The last two lines are the kernels' JSON
 record and the result line
@@ -85,6 +105,7 @@ result is printed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import struct
@@ -167,14 +188,43 @@ K3_CLI_SHAPES = [(256, (128, 64, 32, 16, 8))]
 # grinds, at the bits of every config the paths use (16: core, compressed;
 # 4: dev, compressed_dev; 2: outer_dev).
 K4_CASES = [(n_in, bits) for bits in (16, 4, 2) for n_in in range(8)]
+# The precompile path (phase 11): the grouped programs and the two chains
+# at the core config. K1 hashes the traces of one height as one matrix:
+# rows up to 6,988 words at 8,192 and 16,384 (KeccakSponge's 6,913 columns
+# and the traces beside it) and 15,320 at 8 (the permutation traces of a group's
+# 4-row chips); K3 takes new sets of injected heights. Found by one run of
+# phase 11 with the check put off; launches_of names any shape left out.
+K1_PRECOMPILE_SHAPES = [
+    (131072, 57), (131072, 44), (131072, 16), (65536, 46), (65536, 14), (32768, 482), (32768, 244),
+    (32768, 209), (32768, 96), (32768, 16), (32768, 14), (32768, 12), (16384, 6988), (16384, 476),
+    (16384, 68), (16384, 14), (16384, 12), (8192, 6988), (8192, 476), (8192, 68), (8192, 57),
+    (8192, 56), (8192, 24), (4096, 122), (4096, 68), (4096, 46), (4096, 24), (4096, 22),
+    (4096, 20), (4096, 16), (4096, 14), (4096, 4), (2048, 90), (2048, 64), (2048, 22), (2048, 14),
+    (2048, 12), (2048, 4), (1024, 125), (1024, 95), (1024, 80), (1024, 68), (1024, 46), (1024, 36),
+    (1024, 24), (1024, 22), (1024, 16), (1024, 4), (512, 209), (512, 177), (512, 132), (512, 116),
+    (512, 90), (512, 64), (512, 57), (512, 56), (512, 48), (512, 40), (512, 20), (512, 16),
+    (512, 14), (512, 11), (256, 210), (256, 140), (256, 53), (256, 52), (256, 36), (256, 20),
+    (256, 16), (256, 14), (256, 4), (256, 1), (128, 7529), (128, 728), (128, 147), (128, 88),
+    (128, 52), (128, 36), (128, 28), (128, 24), (128, 16), (64, 22), (64, 4), (32, 204), (32, 106),
+    (32, 56), (32, 32), (16, 106), (16, 56), (8, 15320), (8, 13220), (8, 10686), (8, 9112),
+    (8, 3829), (8, 3012), (8, 1632), (8, 429), (8, 416), (8, 204), (8, 192), (8, 168), (8, 88),
+    (8, 72),
+]
+K3_PRECOMPILE_SHAPES = [(256, (128, 32, 8)), (256, (128, 64, 16, 8)), (256, (128, 64, 32, 8)),
+                        (256, (128, 8))]
 K1_ALL_SHAPES = list(dict.fromkeys(K1_SHAPES + K1_RECURSION_SHAPES + K1_SERVICE_SHAPES
-                                   + K1_LADDER_SHAPES + K1_CLI_SHAPES))
+                                   + K1_LADDER_SHAPES + K1_CLI_SHAPES + K1_PRECOMPILE_SHAPES))
+K3_ALL_SHAPES = list(dict.fromkeys(K3_SHAPES + K3_CLI_SHAPES + K3_PRECOMPILE_SHAPES))
 FIB_N, SHARD_SIZE, FIB_CYCLES = 58218, (1 << 16) - 64, 349318
 # How many of phase 5's six shard proofs phase 8 compresses: two make a
 # tree of one join over two lifts, in about a fifth of the time all six
-# take, so that the script with phase 9 stays near half its time limit.
+# take, so that the script with phases 9 and 11 stays inside its time limit.
 # K1_RECURSION_SHAPES goes on holding the shapes of the six-shard tree.
 RECURSION_SHARDS = 2
+# Phase 11: the rounds of each chain (the reference's sha2-chain and
+# sha3-chain workloads, BASELINE.md): the sha2-chain's published 230, and
+# the sha3-chain's 460 halved for the host trace generation of KeccakSponge.
+CHAIN_N = {"sha256": 230, "keccak": 230}
 
 
 def minimal_elf(n: int = 10, vaddr: int = 0x10000) -> bytes:
@@ -235,8 +285,14 @@ def phase_kernels(dev) -> dict:
         r["shapes"][shape] = (ms, plain_ms, *bound)
 
     def check(name, kernel, plain, host, x_np, reps, plain_reps, bound):
+        """plain_reps 0: the plain version's time is that of its one call
+        here, the comparison's."""
         x = tf.from_host(x_np, dev)
-        got, want = kernel(x), plain(x)
+        got = kernel(x)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(x)
+        end.record()
         torch.cuda.synchronize()
         err = int((got - want).abs().max()) if got.numel() else 0
         assert err == 0 and torch.equal(got, want), (name, x_np.shape, err)
@@ -246,21 +302,31 @@ def phase_kernels(dev) -> dict:
         assert np.array_equal(tf.to_host(got[torch.as_tensor(sub, device=dev)]), host_out), name
         xs = kb.cold_copies(x)
         note(name, tuple(x_np.shape), err, kb.cuda_ms(kernel, xs, reps),
-             kb.cuda_ms(plain, xs[:1], plain_reps), bound)
+             kb.cuda_ms(plain, xs[:1], plain_reps) if plain_reps else start.elapsed_time(end),
+             bound)
 
     def rand(n, w):
         return rng.integers(0, 2130706433, (n, w), dtype=np.uint32)
 
     for n, w in K1_ALL_SHAPES:
         big = n * w >= 1 << 20
+        # the plain sponge is timed over two calls at the main path's shapes,
+        # else once: the widest rows take it seconds a call
         check("hash_rows", kernels.hash_rows, tp2.hash_rows_plain, hp2.hash_rows,
-              rand(n, w), 10 if big else 30, 2, kb.k1_bound(n, w))
+              rand(n, w), 10 if big else 30, 2 if (n, w) in K1_SHAPES else 0,
+              kb.k1_bound(n, w))
     for m in K2_SIZES:
         check("permute", kernels.permute, tp2.permute_plain, hp2.permute,
               rand(m, 16), 50, 5, kb.k2_bound(m))
         x = tf.from_host(rand(m, 16), dev)
         assert torch.equal(kernels.permute_variant(x, True), kernels.permute_variant(x, False)), m
-    for h, heights in K3_SHAPES + K3_CLI_SHAPES:
+    # K3's second floor: its levels form a chain, each at least one
+    # permutation's latency (K2 at m = 1 less a launch)
+    launch = kb.launch_ms(dev)
+    perm_ms = rec["permute"]["shapes"][(1, 16)][0]
+    print(f"  a launch of the least kernel: {launch:.4f} ms; K2 at m = 1: {perm_ms:.4f} ms",
+          flush=True)
+    for h, heights in K3_ALL_SHAPES:
         cur = tf.from_host(rand(h, 8), dev)
         inj = {hh: tf.from_host(rand(hh, 8), dev) for hh in heights}
         got = kernels.compress_levels(cur, inj)
@@ -274,6 +340,10 @@ def phase_kernels(dev) -> dict:
              kb.cuda_ms(lambda x: kernels.compress_levels(x, inj), xs, 50),
              kb.cuda_ms(lambda x: tp2.compress_levels_plain(x, inj), xs[:1], 3),
              kb.k3_bound(h, inj))
+        floor = kb.k3_chain_floor(h, perm_ms, launch)
+        rec["compress_levels"].setdefault("chain_floor", {})[(h, heights)] = floor
+        print(f"    chain floor {floor:.4f} ms ({h.bit_length() - 1} dependent levels)",
+              flush=True)
     for n_in, bits in K4_CASES:
         host = DuplexChallenger()
         host.observe_slice(rng.integers(0, 2130706433, 24 + n_in, dtype=np.uint32))
@@ -335,7 +405,7 @@ def launches_of(path: str) -> dict:
     for name, count in launches.items():
         assert count > 0, f"kernel {name} was not launched on {path}"
     held = {"hash_rows": set(K1_ALL_SHAPES), "permute": set(K2_SIZES),
-            "compress_levels": set(K3_SHAPES + K3_CLI_SHAPES), "grind": set(K4_CASES)}
+            "compress_levels": set(K3_ALL_SHAPES), "grind": set(K4_CASES)}
     missed = {name: sorted(set(hist) - held[name], key=str) for name, hist in shapes.items()}
     assert not any(missed.values()), f"launched at shapes phase 3 did not hold: {missed}"
     return launches
@@ -516,29 +586,293 @@ def phase_fused(program, machine, pk, vk, proof, records) -> dict:
 
 def busy_share(fs) -> None:
     """The card's busy share of one replay: kernel time from torch.profiler
-    over the replay's span from CUDA events. Only a profiler that gives no
-    device time leaves it unmeasured; a replay that fails fails the phase."""
+    over the replay's span from CUDA events, and over the span of a replay
+    without the profiler, which stretches the span of a graph of many nodes.
+    Only a profiler that gives no device time leaves it unmeasured; a replay
+    that fails fails the phase."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    _fetch, (start, end) = fs()
+    torch.cuda.synchronize()
+    unprofiled_ms = start.elapsed_time(end)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _fetch, (start, end) = fs()
         torch.cuda.synchronize()
     span_ms = start.elapsed_time(end)
-    try:
-        events = prof.key_averages()
-    except RuntimeError as e:  # a profiler that collected nothing: a measurement only
-        print(f"  busy share of a replay: not measured ({e}; the replay took "
-              f"{span_ms:.3f} ms)", flush=True)
-        return
-    busy_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
-    kernels_n = sum(e.count for e in events)
-    if not busy_us:
+    results = getattr(prof.profiler, "kineto_results", None)
+    # the raw events: key_averages() takes about a minute over 300,000 kernels
+    on_card = [e for e in results.events() if e.device_type() == DeviceType.CUDA] \
+        if results is not None else []
+    busy_ms = sum(e.duration_ns() for e in on_card) / 1e6
+    if not busy_ms:
         print(f"  busy share of a replay: not measured (the profiler gave no device time; "
               f"the replay took {span_ms:.3f} ms)", flush=True)
         return
-    print(f"  busy share of a replay of {fs.nodes} nodes: {busy_us / 1e3:.3f} ms of device "
-          f"time in {kernels_n} events over {span_ms:.3f} ms, "
-          f"{100 * busy_us / 1e3 / span_ms:.1f}% (torch.profiler)", flush=True)
+    print(f"  busy share of a replay of {fs.nodes} nodes: {busy_ms:.3f} ms of device "
+          f"time in {len(on_card)} events over {span_ms:.3f} ms, "
+          f"{100 * busy_ms / span_ms:.1f}% (torch.profiler); {100 * busy_ms / unprofiled_ms:.1f}% "
+          f"of a replay's {unprofiled_ms:.3f} ms without it", flush=True)
+
+
+class _TraceGenClock:
+    """Host seconds inside each chip's generate_dependencies and
+    generate_trace while it is installed on a machine's chips (the shards'
+    trace generation runs in threads, whose seconds overlap)."""
+
+    def __init__(self, machine):
+        self.seconds: dict = {}
+        self._lock = threading.Lock()
+        self._airs = [c.air for c in machine.chips]
+        for c in machine.chips:
+            for fn in ("generate_dependencies", "generate_trace"):
+                setattr(c.air, fn, self._timed(c.name, getattr(c.air, fn)))
+
+    def _timed(self, name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                with self._lock:
+                    self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    def take(self) -> dict:
+        with self._lock:
+            out, self.seconds = self.seconds, {}
+        return out
+
+    def remove(self) -> None:
+        for air in self._airs:
+            for fn in ("generate_dependencies", "generate_trace"):
+                air.__dict__.pop(fn, None)
+
+
+@contextlib.contextmanager
+def held_traces():
+    """While open, the prover's trace pipeline (stark/tprover.py) makes each
+    record's traces once and a later prove of the same records takes them
+    again: the script holds them, so that a chain's fused proves measure the
+    card and not a second host trace generation of the same shards. The
+    prover itself keeps no record's traces: no user proves a record twice."""
+    from ziren_tpu_torch.stark import tprover
+
+    generate_fixed, named_traces = tprover.generate_fixed, tprover._named_traces
+    held: dict = {}
+
+    def fixed_once(machine, record, targets):
+        if id(record) not in held:
+            held[id(record)] = generate_fixed(machine, record, targets)
+        return held[id(record)]
+
+    def named_once(machine, record):
+        if id(record) not in held:
+            held[id(record)] = named_traces(machine, record)
+        return list(held[id(record)])
+
+    tprover.generate_fixed, tprover._named_traces = fixed_once, named_once
+    try:
+        yield
+    finally:
+        tprover.generate_fixed, tprover._named_traces = generate_fixed, named_traces
+
+
+def fold_nodes(fs, chip_name: str) -> int:
+    """The graph nodes of chip_name's two folds (its permutation trace and
+    its quotient): one eager run of a _FusedShard's body over its buffers,
+    in which those two calls alone are captured, each into a graph of its
+    own, counted and replayed for the rest of the run, whose result is
+    dropped."""
+    from ziren_tpu_torch.stark import tfolder, tfused
+
+    real = {n: getattr(tfolder, n) for n in ("perm_trace", "quotient")}
+    graphs = []
+
+    def captured(fn):
+        def inner(chip, *args, **kw):
+            if chip.name != chip_name:
+                return fn(chip, *args, **kw)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(fs.device)):
+                out = fn(chip, *args, **kw)
+            graphs.append(graph)
+            graph.instantiate()
+            graph.replay()  # the rest of the body reads its results
+            return out
+        return inner
+
+    try:
+        for n, fn in real.items():
+            setattr(tfolder, n, captured(fn))
+        fs._body()
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in real.items():
+            setattr(tfolder, n, fn)
+    assert len(graphs) == 2, f"{chip_name}: {len(graphs)} folds captured"
+    return sum(tfused._graph_nodes(g) for g in graphs)
+
+
+def phase_precompiles(host_proc) -> dict:
+    """Phase 11: the precompile path. The host prover's proofs of the
+    grouped programs come from group_host_proofs, in the process started
+    with the script. Returns the kernels' launches over every prove of the
+    phase."""
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.executor import asm
+    from ziren_tpu_torch.executor.split import SplitOpts
+    from ziren_tpu_torch.machine.mips import execute_sharded, mips_machine, verify_mips_proof
+    from ziren_tpu_torch.stark import tfused
+    from ziren_tpu_torch.stark.config import core_config
+    from ziren_tpu_torch.stark.machine import prove
+    from ziren_tpu_torch.stark.serialize import serialize_shard_proof
+    from ziren_tpu_torch.tools import precompile_programs as pp
+
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    print(f"  deferral threshold in force: SplitOpts.from_env().deferred = "
+          f"{SplitOpts.from_env().deferred} rows", flush=True)
+    line, waited_s = host_output(host_proc, "the grouped programs' host prover process")
+    host_proofs = json.loads(line)
+    print(f"  the host prover's proofs of the groups (a process of their own, beside the "
+          f"earlier phases; waited {waited_s:.2f} s for it): "
+          + ", ".join(f"{k} {v['seconds']:.3f} s" for k, v in host_proofs.items()), flush=True)
+    kernels.reset_launches()
+    for name in pp.GROUPS:
+        program = pp.group_program(asm, name)
+        machine = mips_machine(core_config())
+        pk, vk = machine.setup(program)
+        ex, records = execute_sharded(program, SHARD_SIZE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        proof = prove(machine, pk, records, fix_shapes=True)  # device=None: the GPU
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        host_s = host_proofs[name]["seconds"]
+        assert [serialize_shard_proof(sp).hex() for sp in proof.shard_proofs] == \
+            host_proofs[name]["shards"], \
+            f"the {name} group's card proof differs from the host prover's"
+        t0 = time.perf_counter()
+        assert verify_mips_proof(machine, vk, proof, pc_start=program.pc_start), name
+        verify_s = time.perf_counter() - t0
+        chips = [n for sp in proof.shard_proofs for n in sp.chip_names]
+        missing = set(pp.GROUP_CHIPS[name]) - set(chips)
+        assert not missing, f"the {name} group proved no {sorted(missing)}"
+        widest = max((c for c in machine.chips if c.name in chips), key=lambda c: c.width)
+        print(f"  group {name} (core config): {int(ex.global_clk)} cycles, "
+              f"{len(proof.shard_proofs)} shard(s) of {len(chips)} chips, its chips "
+              f"{pp.GROUP_CHIPS[name]}; the widest {widest.name} ({widest.width} columns, "
+              f"{widest.num_constraints} constraints); card prove {card_s:.3f} s, host "
+              f"prover {host_s:.3f} s, byte-equal; verify_mips_proof ok in {verify_s:.3f} s; "
+              f"peak device memory {peak} bytes", flush=True)
+    add(launches_of("the precompile groups"))
+
+    for name, order in (("sha256", "big"), ("keccak", "little")):
+        n = CHAIN_N[name]
+        program, digest = getattr(pp, f"{name}_chain_program")(asm, n)
+        machine = mips_machine(core_config())
+        pk, vk = machine.setup(program)
+        clock = _TraceGenClock(machine)
+        proofs, rates, peaks, all_stats, tracegen = [], [], [], [], []
+        # one execution: the eager prove pays the host trace generation and
+        # the fused proves take its traces (a second generation of the SHA
+        # chain's took 160 s, more than the script has)
+        ex, records = execute_sharded(program, SHARD_SIZE)
+        cycles = int(ex.global_clk)
+        try:
+            with held_traces():
+                for i, how in enumerate(("eager", "fused", "fused")):
+                    stats: dict = {}
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    kernels.reset_launches()
+                    t0 = time.perf_counter()
+                    if how == "eager":
+                        proofs.append(prove(machine, pk, records, fix_shapes=True, stats=stats))
+                    else:
+                        proofs.append(tfused.prove_shards_fused(machine, pk, records,
+                                                                stats=stats))
+                    torch.cuda.synchronize()
+                    rates.append(cycles / (time.perf_counter() - t0) / 1e3)
+                    peaks.append(torch.cuda.max_memory_allocated())
+                    tracegen.append(clock.take())
+                    all_stats.append(stats)
+                    add(launches_of(f"the {name} chain, prove {i + 1} ({how})"))
+                    wrapper = {k: kernels.LAUNCHES[k] - kernels.REPLAYED[k]
+                               for k in kernels.LAUNCHES}
+                    print(f"    eager wrapper calls in prove {i + 1}: {wrapper}", flush=True)
+            assert not any(wrapper.values()), \
+                f"the {name} chain's warm fused prove called a kernel's wrapper: {wrapper}"
+        finally:
+            clock.remove()
+
+        eager = [serialize_shard_proof(sp) for sp in proofs[0].shard_proofs]
+        verify_s = []
+        for i, proof in enumerate(proofs):
+            got = [serialize_shard_proof(sp) for sp in proof.shard_proofs]
+            assert got == eager, f"the {name} chain's prove {i + 1} differs from its eager proof"
+            t0 = time.perf_counter()
+            assert verify_mips_proof(machine, vk, proof, pc_start=program.pc_start), \
+                f"the {name} chain's prove {i + 1} does not verify"
+            verify_s.append(time.perf_counter() - t0)
+        got = pp.committed_digest(proofs[0].shard_proofs[0].public_values, order)
+        assert got == digest, f"the {name} chain committed {got.hex()}, not {digest.hex()}"
+        sets = [tuple(sp.chip_names) for sp in proofs[0].shard_proofs]
+        standalone = [i + 1 for i, s in enumerate(sets) if "SyscallPrecompile" in s
+                      and "Cpu" not in s]
+        if name == "sha256":
+            assert standalone, "the SHA chain has no standalone precompile shard"
+        print(f"  {name} chain, {n} rounds: {cycles} cycles, {len(sets)} shards, digest "
+              f"{digest.hex()} committed as expected; every prove byte-equal to the eager one, "
+              f"verify_mips_proof ok in " + ", ".join(f"{s:.3f}" for s in verify_s) + " s; "
+              f"standalone precompile shards (no Cpu): {standalone}", flush=True)
+        for s in dict.fromkeys(sets):
+            heights = [ov.log_degree for ov in
+                       proofs[0].shard_proofs[sets.index(s)].opened_values]
+            print(f"    shards {[i + 1 for i, t in enumerate(sets) if t == s]}: "
+                  + ", ".join(f"{c} 2^{h}" for c, h in zip(s, heights)), flush=True)
+        for i, (st, r, peak, tg) in enumerate(zip(all_stats, rates, peaks, tracegen)):
+            per = st.get("dispatch_s") or st.get("call_s")
+            kind = "dispatch" if "dispatch_s" in st else "call (warm-up and capture, or replay)"
+            how = "eager" if i == 0 else "fused, on the eager prove's traces"
+            print(f"    prove {i + 1} ({how}): {r:.3f} kHz prove-only; trace-gen wait s "
+                  + ", ".join(f"{s:.3f}" for s in st["trace_wait_s"])
+                  + f"; {kind} s " + ", ".join(f"{s:.3f}" for s in per)
+                  + ("; replay ms " + ", ".join(f"{m:.3f}" for m in st["replay_ms"])
+                     if st.get("replay_ms") else "")
+                  + f"; fetch {st['fetch_s']:.3f} s, assemble {st['assemble_s']:.3f} s; "
+                  f"peak device memory {peak} bytes", flush=True)
+            top = sorted(tg.items(), key=lambda kv: -kv[1])[:6]
+            print("      host trace generation s by chip (threads overlap): "
+                  + ", ".join(f"{c} {s:.2f}" for c, s in top), flush=True)
+        built = [fs for fs in tfused._MEM.values() if fs.machine is machine]
+        for b in all_stats[1]["built"]:
+            print(f"    a graph built: capture {b['capture_s']:.3f} s, instantiate "
+                  f"{b['instantiate_s']:.3f} s, {b['nodes']} nodes, memory pool "
+                  f"{b['pool_bytes']} bytes, launches recorded {b['launches']}", flush=True)
+        print(f"    graphs of this chain still held: {len(built)} of the {len(tfused._MEM)} "
+              f"held (_MEM_MAX {tfused._MEM_MAX}); replays: {[fs.replays for fs in built]}",
+              flush=True)
+        t0 = time.perf_counter()
+        for fs in built:
+            busy_share(fs)
+        print(f"    (the busy shares took {time.perf_counter() - t0:.1f} s)", flush=True)
+        if name == "keccak":
+            t0 = time.perf_counter()
+            fs = next(fs for fs in built if "KeccakSponge" in [c.name for c in fs.chips])
+            inside = fold_nodes(fs, "KeccakSponge")
+            print(f"    KeccakSponge's two folds are {inside} of the {fs.nodes} nodes of its "
+                  f"shard's graph ({100 * inside / fs.nodes:.1f}%; nodes are the eager path's "
+                  f"launches and a few memory copies; counted in "
+                  f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return total
 
 
 def phase_small_recursion(machine, vk, shard_proof) -> None:
@@ -646,16 +980,53 @@ def ladder_registry() -> None:
     print(path, flush=True)
 
 
-def start_ladder_registry():
-    """ladder_registry() in a process of its own, with no card in sight.
+def group_host_proofs() -> None:
+    """The host prover's proofs of phase 11's grouped programs (the same
+    programs, config, execution and fixed shapes as the card's), printed as
+    one JSON line of hex shard proofs and seconds. The script runs this in a
+    process of its own, which sees no card, while the earlier phases run."""
+    from ziren_tpu_torch.executor import asm
+    from ziren_tpu_torch.machine.mips import execute_sharded, mips_machine
+    from ziren_tpu_torch.stark.config import core_config
+    from ziren_tpu_torch.stark.serialize import serialize_shard_proof
+    from ziren_tpu_torch.tools import precompile_programs as pp
+
+    out = {}
+    for name in pp.GROUPS:
+        program = pp.group_program(asm, name)
+        machine = mips_machine(core_config())
+        pk, _vk = machine.setup(program)
+        _ex, records = execute_sharded(program, SHARD_SIZE)
+        t0 = time.perf_counter()
+        proof = machine.prove(pk, records, device="host", fix_shapes=True)
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "shards": [serialize_shard_proof(sp).hex() for sp in proof.shard_proofs]}
+    print(json.dumps(out), flush=True)
+
+
+def start_host_process(call: str):
+    """chip_smoke.<call>() in a process of its own, with no card in sight.
     Returns (the process, its output file)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
     out = tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.ladder_registry()"],
+    proc = subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}()"],
                             cwd=repo, env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
     return proc, out
+
+
+def host_output(proc_out, what: str) -> tuple:
+    """Wait for a process of start_host_process; (its last line, seconds
+    waited). Fails if it failed."""
+    proc, out = proc_out
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    waited = time.perf_counter() - t0
+    out.seek(0)
+    log = out.read()
+    assert rc == 0, f"{what} failed ({rc}):\n{log[-3000:]}"
+    return log.strip().splitlines()[-1], waited
 
 
 def phase_service(registry_proc) -> dict:
@@ -817,14 +1188,7 @@ def phase_service(registry_proc) -> dict:
 
     # the upper rungs of the ladder, dev config, one shard; the registry
     # comes from the process started with the script
-    proc, out = registry_proc
-    t0 = time.perf_counter()
-    rc = proc.wait()
-    waited_s = time.perf_counter() - t0
-    out.seek(0)
-    log = out.read()
-    assert rc == 0, f"the ladder's registry process failed ({rc}):\n{log[-3000:]}"
-    registry_file = log.strip().splitlines()[-1]
+    registry_file, waited_s = host_output(registry_proc, "the ladder's registry process")
     assert os.path.exists(registry_file), registry_file
     kernels.reset_launches()
     small = fibonacci_program(30)
@@ -865,18 +1229,19 @@ def phase_service(registry_proc) -> dict:
 
 def main() -> None:
     dev = require_cuda()
-    registry_proc = start_ladder_registry()
+    procs = {"ladder": start_host_process("ladder_registry"),
+             "groups": start_host_process("group_host_proofs")}
     try:
-        run(dev, registry_proc)
+        run(dev, procs)
     finally:
-        proc, out = registry_proc
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        out.close()
+        for proc, out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
 
 
-def run(dev, registry_proc) -> None:
+def run(dev, procs) -> None:
     started = time.perf_counter()
     seconds = {}
 
@@ -912,9 +1277,10 @@ def run(dev, registry_proc) -> None:
     phase(7, "small recursion shard, port vs host prover", phase_small_recursion, *small)
     recursion_launches = phase(8, "the recursion path", phase_recursion, program, machine,
                                vk, proof)
-    service_launches = phase(9, "the service path", phase_service, registry_proc)
+    service_launches = phase(9, "the service path", phase_service, procs["ladder"])
     fused_launches = phase(10, "the fused path", phase_fused, program, machine, pk, vk, proof,
                            records)
+    precompile_launches = phase(11, "the precompile path", phase_precompiles, procs["groups"])
     print("seconds by phase (phase 2 is the build above): "
           + ", ".join(f"{n}: {s:.1f}" for n, s in sorted(seconds.items()))
           + f"; the whole script {time.perf_counter() - started:.1f}", flush=True)
@@ -927,10 +1293,12 @@ def run(dev, registry_proc) -> None:
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces,
                 "launches": launches[name] + recursion_launches[name]
-                + sum(service_launches[name]) + fused_launches[name],
+                + sum(service_launches[name]) + fused_launches[name]
+                + precompile_launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                "shape": str(shape)}
+                "shape": str(shape), **({"chain_floor_ms": r["chain_floor"][shape]}
+                                        if "chain_floor" in r else {})}
 
     print(json.dumps({"kernels": [
         entry("hash_rows", "ziren_tpu/ops/jposeidon2.py:235", (1 << 17, 108)),

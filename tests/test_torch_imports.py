@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax():
               "snark.bn254_curve_native", "snark.circuit", "snark.circuit_outer",
               "snark.contract", "snark.frvec", "snark.groth16", "snark.plonk",
               "snark.wrap_circuit", "guest.abi", "guest.build", "stark.interop",
-              "stark.picus", "machine.debug", "stark.tfused"):
+              "stark.picus", "machine.debug", "stark.tfused",
+              "tools.precompile_programs", "tools.kernel_bench"):
         assert "ziren_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

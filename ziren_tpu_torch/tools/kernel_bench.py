@@ -12,7 +12,9 @@ the bound
         (input + output bytes as int64) / 3.35e12 per s)
 
 where a row of width w is ceil(w / 8) permutations, a state is one and a
-proof-of-work grind (K4, chip_smoke.py phase 3) is witness + 1. An
+proof-of-work grind (K4, chip_smoke.py phase 3) is witness + 1. K3 has a
+second floor, its chain of dependent levels (k3_chain_floor): log2(h) times
+one permutation's latency, K2's time at m = 1 less a launch's. An
 input smaller than the 50 MB L2 is timed over rotating copies that exceed
 it together. `--parent DIR` names an unpacked earlier tree of this
 repository: its kernels are timed in a subprocess before and after this
@@ -66,6 +68,20 @@ def k2_bound(m: int) -> tuple:
 def k3_bound(h: int, injected: dict) -> tuple:
     inj = sum(injected)
     return bound_ms(h - 1 + inj, 8 * 8 * (h + inj + h - 1))
+
+
+def k3_chain_floor(h: int, perm_ms: float, launch: float) -> float:
+    """K3's floor however wide it runs: its log2(h) levels each wait for the
+    level below, and each takes at least one permutation's latency, K2's
+    time at m = 1 (`perm_ms`) less a launch's (`launch`)."""
+    return (h.bit_length() - 1) * max(perm_ms - launch, 0.0)
+
+
+def launch_ms(dev) -> float:
+    """Device ms of the least kernel (a one-word add) timed back to back as
+    cuda_ms times a kernel: what a timed launch costs beside its work."""
+    x = torch.zeros(1, dtype=torch.int64, device=dev)
+    return cuda_ms(lambda t: t.add_(1), [x], 200)
 
 
 def k4_bound(witness: int, n_in: int) -> tuple:
@@ -162,6 +178,7 @@ def time_kernels(dev, quick: bool) -> dict:
             lambda x: kernels.permute_variant(x, False), xs, 50)
         out["permute_lanes"][str(m)] = cuda_ms(
             lambda x: kernels.permute_variant(x, True), xs, 50)
+    out["launch_ms"] = launch_ms(dev)
     for h in (256, 32):
         xs = cold_copies(rand(rng, dev, h, 8))
         for heights in ([], [128, 64, 8]):
@@ -278,7 +295,11 @@ def main() -> None:
     for who, r in runs:
         print(who, json.dumps(r), flush=True)
     bounds = {"hash_rows": {f"{n}x{w}": k1_bound(n, w) for n, w in K1_SHAPES},
-              "permute": {str(m): k2_bound(m) for m in K2_SIZES}}
+              "permute": {str(m): k2_bound(m) for m in K2_SIZES},
+              "compress_levels": {f"{h}+0": k3_bound(h, {}) for h in (256, 32)}}
+    change = [r for who, r in runs if who == "change"][-1]
+    bounds["compress_levels_chain_floor"] = {
+        f"{h}": k3_chain_floor(h, change["permute"]["1"], change["launch_ms"]) for h in (256, 32)}
     result["bound_ms"] = bounds
     print("bounds", json.dumps(bounds), flush=True)
     print(json.dumps(result), flush=True)
