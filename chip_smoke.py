@@ -95,7 +95,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      fetch, assembly, host trace-generation seconds by chip, peak device
      memory, launches by kernel and shape, each graph's nodes, capture,
      instantiate, pool bytes and busy share, and KeccakSponge's share of
-     its shard's eager launches.
+     its shard's eager launches;
+ 12. the multi-device path (ziren_tpu_torch/device.py's Mesh, stark/ici.py,
+     stark/sharded.py): a mesh of MESH_MEMBERS members, each a device and a
+     stream of its own, all on the one card (one member per card when the
+     machine has several). commit_row_sharded and leaf_hash_row_sharded of
+     a seeded (2^17, 600) and a (2^17, 108) matrix over 1, 2 and 4
+     members, bit-equal to ops/tpcs.merkle_commit on one device (phase 6
+     holds that tree against the host), and ntt_mesh of the (2^17, 108)
+     matrix, bit-equal to ops/tntt.ntt on one device; then phase 5's
+     program over 2 members: prove_shards_sharded twice (the first builds
+     each member's graphs, the second replays them) and
+     StarkMachine.prove(devices=...) once, each byte-equal to phase 5's
+     eager proof shard for shard (fix_shape pads as phase 5's cost model
+     does) and verified. Reports the seconds of each commit and NTT against
+     one device and K1's bound, each prove's rate, each member's graphs
+     (capture, instantiate, nodes, pool), replays, peak device memory, and
+     the launches and launch shapes of the path. Members that share a card
+     cannot be faster than one: what this phase measures is the cost of the
+     gather, the exchanges and the streams.
 
 The script needs one CUDA card. The last two lines are the kernels' JSON
 record and the result line
@@ -212,8 +230,14 @@ K1_PRECOMPILE_SHAPES = [
 ]
 K3_PRECOMPILE_SHAPES = [(256, (128, 32, 8)), (256, (128, 64, 16, 8)), (256, (128, 64, 32, 8)),
                         (256, (128, 8))]
+# Phase 12: the members' row blocks of the (2^17, 600) and (2^17, 108)
+# matrices over 2 and 4 members (K2 and K3 fold them at shapes held above;
+# the gathered caps of 2 or 4 subtree roots are one K3 call of h = 2 or 4).
+MESH_MEMBERS, MESH_ROWS = 4, 1 << 17
+K1_MESH_SHAPES = [(MESH_ROWS // k, w) for k in (2, 4) for w in (600, 108)]
 K1_ALL_SHAPES = list(dict.fromkeys(K1_SHAPES + K1_RECURSION_SHAPES + K1_SERVICE_SHAPES
-                                   + K1_LADDER_SHAPES + K1_CLI_SHAPES + K1_PRECOMPILE_SHAPES))
+                                   + K1_LADDER_SHAPES + K1_CLI_SHAPES + K1_PRECOMPILE_SHAPES
+                                   + K1_MESH_SHAPES))
 K3_ALL_SHAPES = list(dict.fromkeys(K3_SHAPES + K3_CLI_SHAPES + K3_PRECOMPILE_SHAPES))
 FIB_N, SHARD_SIZE, FIB_CYCLES = 58218, (1 << 16) - 64, 349318
 # How many of phase 5's six shard proofs phase 8 compresses: two make a
@@ -875,6 +899,130 @@ def phase_precompiles(host_proc) -> dict:
     return total
 
 
+def mesh_of(dev, members: int, axis: str):
+    """A mesh of `members` members: all on `dev` when the machine has one
+    card, else in turn over the cards."""
+    from ziren_tpu_torch.device import Mesh
+
+    cards = torch.cuda.device_count()
+    return Mesh([torch.device("cuda", i % cards) for i in range(members)] if cards > 1
+                else [dev] * members, axis)
+
+
+def phase_mesh(dev, program, machine, pk, vk, proof) -> dict:
+    """Phase 12: the multi-device path. Returns the kernels' launches over
+    its checked commits and its three proves."""
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.core import field as F
+    from ziren_tpu_torch.machine.mips import execute_sharded, verify_mips_proof
+    from ziren_tpu_torch.ops import tfield as tf
+    from ziren_tpu_torch.ops import tntt, tpcs
+    from ziren_tpu_torch.stark import ici, tfused
+    from ziren_tpu_torch.stark.sharded import prove_shards_sharded
+    from ziren_tpu_torch.stark.serialize import serialize_shard_proof
+    from ziren_tpu_torch.tools import kernel_bench as kb
+
+    rng = np.random.default_rng(12)
+    mats = {w: rng.integers(0, F.P_INT, (MESH_ROWS, w), dtype=np.uint32) for w in (600, 108)}
+    xs = {w: tf.from_host(m, dev) for w, m in mats.items()}
+    sizes = sorted({1, 2, MESH_MEMBERS})
+    meshes = {k: mesh_of(dev, k, "row") for k in sizes}
+    print(f"  meshes: {', '.join(repr(m) for m in meshes.values())}", flush=True)
+    ones = {w: tpcs.merkle_commit([x]) for w, x in xs.items()}  # one device, the default stream
+    ntt_one = tntt.ntt(mats[108])  # device=None: the GPU
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    for w, x in xs.items():
+        one = ones[w]
+        for k, mesh in meshes.items():
+            roots, leaves = ici.commit_row_sharded(x, mesh)
+            assert len(roots) == len(leaves) == k
+            for r in roots:
+                assert torch.equal(r.to(dev), one.root), (w, k)
+            assert torch.equal(torch.cat([d.to(dev) for d in leaves]), one.levels[0]), (w, k)
+        leaves = ici.leaf_hash_row_sharded(x, meshes[MESH_MEMBERS])
+        assert torch.equal(torch.cat([d.to(dev) for d in leaves]), one.levels[0]), w
+    got = tf.to_host(ici.ntt_mesh(xs[108], meshes[MESH_MEMBERS]))
+    assert np.array_equal(got, ntt_one), "ntt_mesh differs from tntt.ntt"
+    print(f"  commit_row_sharded over {sizes} members and leaf_hash_row_sharded over "
+          f"{MESH_MEMBERS} of ({MESH_ROWS}, 600) and ({MESH_ROWS}, 108): every member's root "
+          f"and the leaf digests bit-equal to tpcs.merkle_commit on one device; ntt_mesh of "
+          f"({MESH_ROWS}, 108) over {MESH_MEMBERS} members bit-equal to tntt.ntt", flush=True)
+
+    eager = [serialize_shard_proof(sp) for sp in proof.shard_proofs]
+    mesh2 = mesh_of(dev, 2, "shard")
+    runs = []
+    for name in ("prove_shards_sharded, building", "prove_shards_sharded, warm",
+                 "StarkMachine.prove(devices=...)"):
+        _ex, records = execute_sharded(program, SHARD_SIZE)
+        stats: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        replays = {id(fs): fs.replays for fs in tfused._MEM.values()}
+        t0 = time.perf_counter()
+        if name.startswith("prove_shards_sharded"):
+            got = prove_shards_sharded(machine, pk, records, mesh2, stats=stats)
+        else:
+            got = machine.prove(pk, records, fix_shapes=True, devices=mesh2, stats=stats)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        mine = [fs for key, fs in tfused._MEM.items() if fs.machine is machine
+                and key[-1] is not None]
+        replayed = sum(fs.replays - replays.get(id(fs), 0) for fs in mine)
+        assert [serialize_shard_proof(sp) for sp in got.shard_proofs] == eager, \
+            f"{name}: the proof differs from phase 5's eager proof"
+        t0 = time.perf_counter()
+        assert verify_mips_proof(machine, vk, got, pc_start=program.pc_start), name
+        runs.append((name, prove_s, peak, stats, replayed, time.perf_counter() - t0))
+    launches = launches_of("the multi-device path")
+
+    for name, prove_s, peak, stats, replayed, verify_s in runs:
+        per = stats.get("call_s") or stats["dispatch_s"]
+        kind = "call (warm-up and capture, or load and replay)" if "call_s" in stats \
+            else "dispatch"
+        print(f"  {name} over 2 members: {FIB_CYCLES / prove_s / 1e3:.3f} kHz prove-only "
+              f"({prove_s:.3f} s), byte-equal to phase 5's eager proof shard for shard, "
+              f"verify_mips_proof ok in {verify_s:.3f} s; {kind} s "
+              + ", ".join(f"{s:.3f}" for s in per)
+              + (f" on members {stats['member']}" if "member" in stats else "")
+              + f"; fetch {stats['fetch_s']:.3f} s, assemble {stats['assemble_s']:.3f} s; "
+              f"replays {replayed}; peak device memory {peak} bytes", flush=True)
+        for b in stats.get("built", []):
+            print(f"    a member's graph built: capture {b['capture_s']:.3f} s, instantiate "
+                  f"{b['instantiate_s']:.3f} s, {b['nodes']} nodes, memory pool "
+                  f"{b['pool_bytes']} bytes", flush=True)
+    print(f"  graphs held: {len(tfused._MEM)} (_MEM_MAX {tfused._MEM_MAX}), of them the "
+          f"members': {sum(1 for k in tfused._MEM if k[-1] is not None)}", flush=True)
+
+    # the seconds, after the counts are read: CUDA events on the caller's
+    # stream, which waits for the members' streams at the end of each call
+    # (on other cards: for the results' copies to `dev`)
+    def to_dev(parts):
+        return [t.to(dev) for t in parts]
+
+    for w, x in xs.items():
+        bound = kb.k1_bound(*x.shape)
+        one_ms = kb.cuda_ms(lambda y: tpcs.merkle_commit([y]), [x], 10)
+        mesh_ms = {k: kb.cuda_ms(lambda y: to_dev(ici.commit_row_sharded(y, mesh)[0]), [x], 10)
+                   for k, mesh in meshes.items()}
+        leaf_ms = kb.cuda_ms(
+            lambda y: to_dev(ici.leaf_hash_row_sharded(y, meshes[MESH_MEMBERS])), [x], 10)
+        print(f"  commit of ({MESH_ROWS}, {w}): one device {one_ms:.4f} ms; commit_row_sharded "
+              + ", ".join(f"{k} member(s) {ms:.4f} ms" for k, ms in mesh_ms.items())
+              + f"; leaf_hash_row_sharded over {MESH_MEMBERS} {leaf_ms:.4f} ms; K1's bound "
+              f"at that shape {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    log_n = MESH_ROWS.bit_length() - 1
+    br = tpcs.bitrev_idx(log_n, dev)
+    one_ms = kb.cuda_ms(lambda y: tpcs.ntt_bitrev_in(y[br], log_n), [xs[108]], 5)
+    mesh_ms = kb.cuda_ms(lambda y: ici.ntt_mesh(y, meshes[MESH_MEMBERS]), [xs[108]], 5)
+    print(f"  NTT of ({MESH_ROWS}, 108): one device {one_ms:.4f} ms, ntt_mesh over "
+          f"{MESH_MEMBERS} members {mesh_ms:.4f} ms (eager PyTorch, no kernel of its own)",
+          flush=True)
+    return launches
+
+
 def phase_small_recursion(machine, vk, shard_proof) -> None:
     from ziren_tpu_torch.recursion import mips_pipeline as mp
     from ziren_tpu_torch.stark.proof import MachineProof
@@ -1281,6 +1429,8 @@ def run(dev, procs) -> None:
     fused_launches = phase(10, "the fused path", phase_fused, program, machine, pk, vk, proof,
                            records)
     precompile_launches = phase(11, "the precompile path", phase_precompiles, procs["groups"])
+    mesh_launches = phase(12, "the multi-device path", phase_mesh, dev, program, machine, pk,
+                          vk, proof)
     print("seconds by phase (phase 2 is the build above): "
           + ", ".join(f"{n}: {s:.1f}" for n, s in sorted(seconds.items()))
           + f"; the whole script {time.perf_counter() - started:.1f}", flush=True)
@@ -1294,7 +1444,7 @@ def run(dev, procs) -> None:
                 "replaces": replaces,
                 "launches": launches[name] + recursion_launches[name]
                 + sum(service_launches[name]) + fused_launches[name]
-                + precompile_launches[name],
+                + precompile_launches[name] + mesh_launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "shape": str(shape), **({"chain_floor_ms": r["chain_floor"][shape]}

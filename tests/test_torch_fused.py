@@ -11,6 +11,8 @@ a batch. The graph itself, and K4, run on the card only (chip_smoke.py
 phase 10, tests/test_torch_kernels.py)."""
 
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -336,3 +338,89 @@ def test_index_tensors_are_uploaded_once():
     assert tf.index(idx.copy(), CPU) is a
     assert tf.index(np.array([3, 1, 2, 0]), CPU) is not a
     assert a.dtype == torch.int64 and a.tolist() == [3, 1, 2]
+
+
+def _engine():
+    tm = tmachine.StarkMachine(tconfig.dev_config(), [PortFibonacciAir()], num_public_values=3)
+    tpk, tvk = tm.setup()
+    return tm, tpk, tvk
+
+
+def _host_bytes(tm, tpk, n):
+    return [tser.serialize_shard_proof(sp) for sp in
+            tm.prove(tpk, [Record(n=n, pv=fib_pv(n))], device="host").shard_proofs]
+
+
+def test_a_build_holds_up_no_built_shape(monkeypatch):
+    """While one thread builds a new shape (its warm-up and capture held on
+    an event), a prove of a shape already built finishes: the table of
+    graphs is locked only to look up or claim a key. The build then ends and
+    proves its own shard."""
+    tm, tpk, tvk = _engine()
+    tfused.prove_shards_fused(tm, tpk, [Record(n=16, pv=fib_pv(16))], device="cpu")
+    gate, entered = threading.Event(), threading.Event()
+    real = tfused._FusedShard.warm_and_capture
+
+    def held(self):
+        entered.set()
+        assert gate.wait(timeout=120)
+        return real(self)
+
+    monkeypatch.setattr(tfused._FusedShard, "warm_and_capture", held)
+    out = {}
+
+    def prove(name, n):
+        out[name] = tfused.prove_shards_fused(tm, tpk, [Record(n=n, pv=fib_pv(n))],
+                                              device="cpu")
+
+    building = threading.Thread(target=prove, args=("new", 128))  # a shape no other test builds
+    building.start()
+    try:
+        assert entered.wait(timeout=60)
+        built = threading.Thread(target=prove, args=("built", 16))
+        built.start()
+        built.join(timeout=30)
+        assert not built.is_alive(), "a prove of a built shape waited for another's build"
+        assert building.is_alive()
+    finally:
+        gate.set()
+        building.join(timeout=120)
+    assert not building.is_alive()
+    for name, n in (("built", 16), ("new", 128)):
+        assert [tser.serialize_shard_proof(sp) for sp in out[name].shard_proofs] == \
+            _host_bytes(tm, tpk, n)
+        assert tm.verify(tvk, out[name])
+
+
+def test_two_threads_build_one_shape_once(monkeypatch):
+    """Two threads that meet one unbuilt shape at once: one builds it, the
+    other waits for that build and replays it (on the CPU: runs its body
+    over the buffers); both proofs are right."""
+    tm, tpk, tvk = _engine()
+    builds = []
+    real = tfused._FusedShard.warm_and_capture
+
+    def counted(self):
+        builds.append(threading.get_ident())
+        time.sleep(0.5)  # the other thread meets the key meanwhile
+        return real(self)
+
+    monkeypatch.setattr(tfused._FusedShard, "warm_and_capture", counted)
+    start = threading.Barrier(2)
+    out = []
+
+    def prove():
+        start.wait(timeout=30)
+        out.append(tfused.prove_shards_fused(tm, tpk, [Record(n=256, pv=fib_pv(256))],
+                                             device="cpu"))  # a shape no other test builds
+
+    threads = [threading.Thread(target=prove) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and len(out) == 2
+    assert len(builds) == 1
+    want = _host_bytes(tm, tpk, 256)
+    for proof in out:
+        assert [tser.serialize_shard_proof(sp) for sp in proof.shard_proofs] == want

@@ -7,9 +7,11 @@ rewritten to relative ones and nothing else changed. Each copied file is
 held against its original here, so a repair made on one side shows up as a
 difference on the other. A few files differ by design, in the functions and
 methods BY_DESIGN names and nowhere else: stark/machine.py (the device
-branch of StarkMachine.prove goes to the torch prover and takes a `device`;
-under ZIREN_FUSED=1 it and `prove` go to stark/tfused.py, the port of
-stark/fused.py, as the JAX package's StarkMachine.prove goes to fused.py),
+branch of StarkMachine.prove goes to the torch prover and takes a `device`,
+or `devices`, a mesh whose members take the shards in turn, as the JAX
+package's `devices` does; under ZIREN_FUSED=1 a `device` prove goes to
+stark/tfused.py, the port of stark/fused.py, as the JAX package's
+StarkMachine.prove goes to fused.py),
 machine/mips.py (prove_program passes `device` on), the recursion entry
 points that prove (they take `device` and pass it on to StarkMachine.prove;
 wrap_bn254 names the host prover, the only one its config has),
@@ -19,7 +21,9 @@ a `device` and hands it to every STARK prove; create_prover's in-process
 modes are "cuda" / "local" for the GPU and "cpu" by name), network/ (the
 service and the server take `device`; the client, which only sets up and
 verifies, is a plain copy; the wire's allowlist names this package, takes no
-dotted name and takes only a class that the package defines itself),
+dotted name and takes only a class that the package defines itself; the
+request verifier tests and records a nonce under one lock, so that two
+threaded copies of a signed request cannot both pass),
 __main__.py (the program's name, `--device`), and
 guest/build.py (include_elf searches ZIREN_ELF_PATH and the caller's root,
 and no fixed directory outside them).
@@ -38,7 +42,8 @@ SRC = os.path.dirname(ziren_tpu.__file__)
 DST = os.path.dirname(ziren_tpu_torch.__file__)
 # files of the port that share a name with one of the JAX package and are
 # not copies of it
-OWN = {"__init__.py", "ops/__init__.py", "stark/__init__.py", "stark/backend.py"}
+OWN = {"__init__.py", "ops/__init__.py", "stark/__init__.py", "stark/backend.py",
+       "stark/ici.py", "stark/sharded.py"}
 # a name with a dot is a method: the rest of its class is held
 BY_DESIGN = {
     "stark/machine.py": {"StarkMachine.prove", "prove"},
@@ -54,6 +59,7 @@ BY_DESIGN = {
                "ProverClient.compressed_prove", "ProverClient.shrink_prove"},
     "network/wire.py": {"_RestrictedUnpickler.find_class"},
     "network/service.py": {"ProverService.__init__", "ProverServer.__init__"},
+    "network/auth.py": {"RequestVerifier.__init__", "RequestVerifier.verify"},
     "__main__.py": {"_client", "_scaffold_guest", "main"},
     "guest/build.py": {"include_elf"},
 }
@@ -61,15 +67,17 @@ BY_DESIGN = {
 # module-level names that the port adds or gives another value
 OWN_DOCSTRING = {"sdk.py", "network/wire.py", "__main__.py"}
 OWN_ASSIGNS = {"network/wire.py": {"_PACKAGE"}, "guest/build.py": {"_ELF_SEARCH"}}
-# the files of the JAX package that are ported, never copied, or never
+# and the modules that a by-design file imports besides the original's
+OWN_IMPORTS = {"network/auth.py": {"threading"}}
+# the files of the JAX package that are ported under another name, or never
 # ported: stark/fused.py is ported as stark/tfused.py (one CUDA graph per
 # shard shape), stark/aot.py stays unported by design (the jax.export disk
-# cache of fused.py's executables: a CUDA graph cannot be written to disk),
-# stark/sharded.py and stark/ici.py are not yet ported (they need a mesh)
+# cache of fused.py's executables: a CUDA graph cannot be written to disk);
+# stark/sharded.py and stark/ici.py are ported under their own names (OWN:
+# over a mesh of members, ziren_tpu_torch/device.py)
 NOT_COPIED = {*[f"ops/j{m}.py" for m in ("challenger", "field", "merkle", "ntt", "pcs",
                                           "poseidon2")],
-              *[f"stark/{m}.py" for m in ("jprover", "jfolder", "sharded", "ici", "fused",
-                                          "aot")]}
+              *[f"stark/{m}.py" for m in ("jprover", "jfolder", "fused", "aot")]}
 RECURSION = ("__init__", "deferred", "dsl", "machine", "mips_pipeline", "pipeline", "septic",
              "shape_universe", "verifier", "vk_registry")
 # one word of a docstring reads otherwise in the copy: (pattern, as copied)
@@ -172,7 +180,9 @@ def test_copied_module_matches_original(rel):
             return [ast.dump(n) for n in body
                     if not isinstance(n, (ast.FunctionDef, ast.ClassDef))
                     and not (isinstance(n, ast.Assign) and isinstance(n.targets[0], ast.Name)
-                             and n.targets[0].id in OWN_ASSIGNS.get(rel, ()))]
+                             and n.targets[0].id in OWN_ASSIGNS.get(rel, ()))
+                    and not (isinstance(n, ast.Import)
+                             and {a.name for a in n.names} <= OWN_IMPORTS.get(rel, set()))]
 
         assert rest(got) == rest(want)
     if rel.startswith("recursion/"):

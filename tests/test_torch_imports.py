@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax():
               "snark.contract", "snark.frvec", "snark.groth16", "snark.plonk",
               "snark.wrap_circuit", "guest.abi", "guest.build", "stark.interop",
               "stark.picus", "machine.debug", "stark.tfused",
-              "tools.precompile_programs", "tools.kernel_bench"):
+              "tools.precompile_programs", "tools.kernel_bench", "device", "stark.ici",
+              "stark.sharded"):
         assert "ziren_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

@@ -9,9 +9,12 @@ import io
 import os
 import pickle
 import sys
+import threading
+import time
 import types
 import urllib.error
 import urllib.request
+from collections import OrderedDict
 
 import pytest
 import torch
@@ -150,6 +153,50 @@ def test_signed_and_wrongly_signed_requests():
             post(headers)  # the same nonce again
         with pytest.raises(urllib.error.HTTPError):
             post(auth.sign_headers(auth.load_key(key), "Setup", body))  # another method's
+
+
+def test_a_replayed_request_passes_once():
+    """Sixteen threads replay one signed request at once, as the threaded
+    server would take sixteen copies of it; the nonce store yields inside
+    its freshness test. Exactly one copy passes: the test, the insert and
+    the eviction are one step under the verifier's lock."""
+
+    class YieldingNonces(OrderedDict):
+        def __contains__(self, nonce):
+            fresh = not super().__contains__(nonce)
+            time.sleep(0.01)  # another thread runs between the test and the insert
+            return not fresh
+
+    key = auth.load_key("a3" * 32)
+    verifier = auth.RequestVerifier(key)
+    verifier._nonces = YieldingNonces()
+    body = wire.dumps({})
+    headers = auth.sign_headers(key, "Ready", body)
+    copies = 16
+    start = threading.Barrier(copies)
+    passed, refused = [], []
+
+    def replay():
+        start.wait(timeout=30)
+        try:
+            verifier.verify("Ready", headers, body)
+            passed.append(1)
+        except auth.AuthError as e:
+            refused.append(str(e))
+
+    threads = [threading.Thread(target=replay) for _ in range(copies)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert len(passed) == 1 and refused == ["nonce replay"] * (copies - 1)
+    assert list(verifier._nonces) == [headers[auth.HDR_NONCE]]
 
 
 def test_without_a_key_the_service_is_open():

@@ -12,7 +12,8 @@ the imports rewritten; the device layers are ported:
          prover,serialize,shape,verifier}.py
                                 copies: the host STARK prover and verifier
   stark/machine.py     StarkMachine (copy) and prove(machine, pk, records,
-                       device=None): None is the GPU, "cpu" the plain versions
+                       device=None): None is the GPU, "cpu" the plain versions;
+                       devices=: shards in turn over a mesh's members
   stark/carry.py       prover state in and out as numpy arrays and bytes
   ops/tfield.py        KoalaBear + ext4 arithmetic on canonical int64 tensors
   ops/tposeidon2.py    Poseidon2 permutation / sponge / compress / tree levels
@@ -23,6 +24,10 @@ the imports rewritten; the device layers are ported:
                        proof assembly
   stark/tfused.py      the shard body as one CUDA graph per shard shape
                        (ZIREN_FUSED=1)
+  device.py            the mesh: members, each a device and its own stream
+  stark/sharded.py     prove_shards_sharded: shards in turn over a mesh's
+                       members, one graph per member and shape
+  stark/ici.py         one commit's rows over a mesh, and the four-step NTT
   kernels.py           the hand-written CUDA kernels (csrc/poseidon2.cu):
                        K1 hash_rows, K2 permute, K3 compress_levels, K4 grind
   tools/kernel_bench.py  checks and times the kernels on a GPU

@@ -20,6 +20,7 @@ import hashlib
 import hmac
 import os
 import secrets
+import threading
 import time
 from collections import OrderedDict
 
@@ -77,6 +78,9 @@ class RequestVerifier:
         self.key = key
         self._nonces: OrderedDict = OrderedDict()
         self.max_nonces = max_nonces
+        # the server answers in threads: the freshness test, the insert
+        # and the eviction are one step, or two copies of a request pass
+        self._lock = threading.Lock()
 
     def verify(self, method: str, headers, body: bytes) -> None:
         sig = headers.get(HDR_SIG)
@@ -93,8 +97,9 @@ class RequestVerifier:
         want = _digest(self.key, method, ts, nonce, body)
         if not hmac.compare_digest(want, str(sig)):
             raise AuthError("bad request signature")
-        if nonce in self._nonces:
-            raise AuthError("nonce replay")
-        self._nonces[nonce] = None
-        while len(self._nonces) > self.max_nonces:
-            self._nonces.popitem(last=False)
+        with self._lock:
+            if nonce in self._nonces:
+                raise AuthError("nonce replay")
+            self._nonces[nonce] = None
+            while len(self._nonces) > self.max_nonces:
+                self._nonces.popitem(last=False)

@@ -16,8 +16,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
+from ..device import Member, Mesh, to_host
 from . import tfused
 from .backend import resolve_device
 from .chip import Chip
@@ -104,7 +104,7 @@ class StarkMachine:
         return pk, vk
 
     def prove(self, pk, records, parallel: bool = True,
-              fix_shapes: bool = False, device=None,
+              fix_shapes: bool = False, device=None, devices=None,
               stats: dict | None = None) -> MachineProof:
         """Prove every shard. Shards are transcript-independent (each gets a
         clone of the post-vk challenger, reference prover.rs).
@@ -120,14 +120,21 @@ class StarkMachine:
         Under ZIREN_FUSED=1 a torch device proves through one CUDA graph
         per shard shape (stark/tfused.py), every shard padded.
 
+        `devices` (a device.Mesh, or a list of devices that becomes one) is
+        the data-parallel eager path in place of `device`: shard i is
+        proved on member i % len(devices), on its stream, and bypasses the
+        fused path; passing both raises.
+
         fix_shapes=True pads every shard to one batch-wide shape
         (stark/shape.py)."""
+        if devices is not None and device is not None:
+            raise ValueError("pass device or devices, not both")
         if not (isinstance(device, str) and device == "host"):
             if not getattr(self.config, "device_capable", True):
                 raise ValueError(
                     "this config is host-only: pass device='host'"
                 )
-            return prove(self, pk, records, device=device,
+            return prove(self, pk, records, device=device, devices=devices,
                          fix_shapes=fix_shapes, stats=stats)
 
         if fix_shapes and len(records) > 1:
@@ -169,7 +176,7 @@ class StarkMachine:
         return True
 
 
-def prove(machine, pk, records, *, device=None, fix_shapes: bool = True,
+def prove(machine, pk, records, *, device=None, devices=None, fix_shapes: bool = True,
           stats: dict | None = None) -> MachineProof:
     """Prove every shard with the torch shard prover on `device`: None is
     the GPU (and raises without one), "cpu" runs the plain PyTorch versions
@@ -177,34 +184,47 @@ def prove(machine, pk, records, *, device=None, fix_shapes: bool = True,
     ZIREN_FUSED=1 (tfused.enabled()) it is tfused.prove_shards_fused: one
     CUDA graph per shard shape, replayed.
 
+    `devices` in place of `device` (a device.Mesh, or a list of devices that
+    becomes one; passing both raises) is the eager data-parallel path of
+    the JAX package's StarkMachine.prove(devices=...): shard i is dispatched
+    to member i % len(devices), on that member's stream, and the fused path
+    is bypassed.
+
     fix_shapes pads every shard to one batch-wide shape (stark/shape.py).
     When the cost model gives the targets without trace generation, shards
     generate their traces in a thread pool while earlier shards prove.
-    Every shard's proof comes back in one device-to-host copy at the end.
+    Every shard's proof comes back in one device-to-host copy per device
+    (per member) at the end.
 
     `stats`, when given, receives host wall seconds per phase: trace-gen
     waits and dispatches per shard (a dispatch issues the shard's device
     work without waiting for it), the fetch and the assembly."""
-    device = resolve_device(device)
-    if tfused.enabled():
-        return tfused.prove_shards_fused(machine, pk, records, device=device, stats=stats)
+    if devices is not None:
+        if device is not None:
+            raise ValueError("pass device or devices, not both")
+        mesh = devices if isinstance(devices, Mesh) else Mesh(devices, "shard")
+        members = mesh.members
+    else:
+        device = resolve_device(device)
+        if tfused.enabled():
+            return tfused.prove_shards_fused(machine, pk, records, device=device, stats=stats)
+        members = (Member(0, device),)  # the caller's current stream
     base = machine.config.challenger()
     pk.vk.observe_into(base)
     waits, dispatch_s, dispatches = [], [], []
-    for r, wait in shard_traces(machine, records, fix_shapes):
+    for i, (r, wait) in enumerate(shard_traces(machine, records, fix_shapes)):
         waits.append(wait)
+        member = members[i % len(members)]
         t0 = time.perf_counter()
-        dispatches.append(dispatch_shard(machine, pk, r, base.clone(), device))
+        with member.scope():
+            dispatches.append((member, dispatch_shard(machine, pk, r, base.clone(),
+                                                      member.device)))
         dispatch_s.append(time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    flats = [d["fetch"] for d in dispatches]
-    fetched = torch.cat(flats).cpu().numpy()
+    fetched = to_host([(member, d["fetch"]) for member, d in dispatches])
     t1 = time.perf_counter()
-    proofs, off = [], 0
-    for d, f in zip(dispatches, flats):
-        proofs.append(finish(pk, d, fetched[off : off + f.numel()]))
-        off += f.numel()
+    proofs = [finish(pk, d, got) for (_member, d), got in zip(dispatches, fetched)]
     if stats is not None:
         stats.update(trace_wait_s=waits, dispatch_s=dispatch_s, fetch_s=t1 - t0,
                      assemble_s=time.perf_counter() - t1)

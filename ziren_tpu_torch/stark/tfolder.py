@@ -289,6 +289,10 @@ def selectors_on_coset(trace_log_n: int, trace_shift: int, coset_log_n: int,
         "is_transition": last_den,
         "inv_zeroifier": tf.minv(z_h),
     }
+    if sels["inv_zeroifier"].is_cuda and not torch.cuda.is_current_stream_capturing():
+        # made on this stream, read by any: the members of a mesh share a
+        # card's cache (stark.machine.prove(devices=...))
+        torch.cuda.current_stream(device).synchronize()
     if len(_SELECTORS) >= 64:  # the oldest goes; a CUDA graph keeps its own
         _SELECTORS.pop(next(iter(_SELECTORS)))
     _SELECTORS[key] = sels

@@ -1,5 +1,5 @@
-"""Whole-shard prover as ONE CUDA graph per (machine, shard shape, device)
-(counterpart of stark/fused.py).
+"""Whole-shard prover as ONE CUDA graph per (machine, shard shape, device,
+mesh member) (counterpart of stark/fused.py).
 
 The eager path (stark/tprover.py:dispatch_shard) issues every operation of
 a shard from Python, some 55,000 launches, and the card waits on that
@@ -20,6 +20,17 @@ fails raises: there is no fallback to the eager path.
 
 On the CPU (device="cpu", which a caller has to name) there is no capture:
 the body runs over the same static buffers at each call.
+
+Threads: the table of built graphs is locked only to look up, claim, insert
+or evict a key. A build runs outside that lock, so a shape already built
+proves while another shape builds, and a second thread that meets a shape
+being built waits for that build and does not build it again. Captures run
+one at a time. A graph held by a call, or being built, is never evicted,
+and an evicted graph's last replay ends before it goes. A replay runs on
+the caller's current stream, after the graph's last replay, wherever that
+ran. stark/sharded.py builds one graph per member of a mesh: with
+_MEM_MAX = 4 the graphs of two members of a fibonacci proof (three shapes
+between them) evict most others.
 
 ZIREN_FUSED=1 routes StarkMachine.prove and stark.machine.prove here, as
 it routes the JAX package's StarkMachine.prove to fused.py. A CUDA graph
@@ -50,7 +61,9 @@ def enabled() -> bool:
     return os.environ.get("ZIREN_FUSED") == "1"
 
 
-def _machine_key(machine, pk, chips, trace_domains, device):
+def _machine_key(machine, pk, chips, trace_domains, device, member=None):
+    """The key of a _FusedShard. A mesh's member (stark/sharded.py) is in
+    it: two members on one card never share a graph's static buffers."""
     fri = machine.config.fri
     return (
         tuple((c.name, d.log_n) for c, d in zip(chips, trace_domains)),
@@ -60,6 +73,7 @@ def _machine_key(machine, pk, chips, trace_domains, device):
         np.asarray(pk.vk.commit, np.uint32).tobytes(),
         tuple(int(x) for x in pk.vk.extra_observations),
         str(device),
+        None if member is None else member.index,
     )
 
 
@@ -99,6 +113,8 @@ class _FusedShard:
         self.capture_s = self.instantiate_s = 0.0
         self.nodes = self.pool_bytes = self.replays = 0
         self.lock = threading.Lock()  # one fill and replay at a time
+        self.users = 0  # calls between their claim and the end of their replay (_MEM_LOCK)
+        self.done = None  # CUDA event after the last replay and its fetch clone
 
     def _body(self):
         return tprover.prove_body(self.machine, self.pk, self.chips, self.trace_domains,
@@ -106,8 +122,11 @@ class _FusedShard:
 
     def fill(self, traces, public_values) -> None:
         """Copy a shard's inputs into the static buffers, on the current
-        stream (the one the replay runs on); the host arrays are uploaded
-        first by a copy that returns only when it is done."""
+        stream (the one the replay runs on), once that stream has waited for
+        the last replay, which may have run on another; the host arrays are
+        uploaded first by a copy that returns only when it is done."""
+        if self.done is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.done)
         for buf, t in zip(self.mains, traces):
             buf.copy_(tf.from_host(t, self.device))
         self.pv.copy_(tprover.pv_tensor(public_values, self.device))
@@ -124,24 +143,25 @@ class _FusedShard:
         # the warm-up has just filled the caches with all of it
         self.keep = (list(tf._CONSTS.values()), list(tfolder._SELECTORS.values()),
                      tprover.device_pk(self.machine, self.pk, self.device))
-        torch.cuda.empty_cache()  # as the capture does first: the pool is what it adds
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        # thread_local: lifts of the recursion tree prove in a thread pool,
-        # and another thread's eager work must not break this capture
-        with kernels.recording() as hist:
-            with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device),
-                                  capture_error_mode="thread_local"):
-                self.fetch, meta = self._body()
-        self.capture_s = time.perf_counter() - t0
-        assert meta == self.meta, "the captured body differs from the warm-up"
-        self.nodes = _graph_nodes(graph)
-        t0 = time.perf_counter()
-        graph.instantiate()
-        torch.cuda.synchronize(self.device)
-        self.instantiate_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+        with _CAPTURE_LOCK:
+            torch.cuda.empty_cache()  # as the capture does first: the pool is what it adds
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            before = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            # thread_local: lifts of the recursion tree prove in a thread
+            # pool, and another thread's eager work must not break this capture
+            with kernels.recording() as hist:
+                with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device),
+                                      capture_error_mode="thread_local"):
+                    self.fetch, meta = self._body()
+            self.capture_s = time.perf_counter() - t0
+            assert meta == self.meta, "the captured body differs from the warm-up"
+            self.nodes = _graph_nodes(graph)
+            t0 = time.perf_counter()
+            graph.instantiate()
+            torch.cuda.synchronize(self.device)
+            self.instantiate_s = time.perf_counter() - t0
+            self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
         self.graph, self.histogram = graph, hist
         return fetch
 
@@ -155,38 +175,95 @@ class _FusedShard:
         events[1].record()
         self.replays += 1
         kernels.credit(self.histogram)
-        return self.fetch.clone(), events  # cloned before the next replay overwrites it
+        fetch = self.fetch.clone()  # cloned before the next replay overwrites it
+        self.done = torch.cuda.Event()
+        self.done.record(torch.cuda.current_stream(self.device))
+        return fetch, events
+
+    def release(self) -> None:
+        """Wait for the last replay, once this shard is no longer held:
+        its graph's pool and buffers are then free to go."""
+        if self.done is not None:
+            self.done.synchronize()
 
 
-_MEM: dict = {}
+_MEM: dict = {}  # key -> built _FusedShard, the least recently used first
 _MEM_MAX = 4  # graphs kept: each holds its memory pool
-# Held while a _FusedShard is built (warm-up and capture): a shape that
-# several threads meet first (the recursion pool's lifts) is built once, and
-# no two captures run at once in the process.
+_BUILDS: dict = {}  # key -> threading.Event, set when the build of that key ends
+# Held only to look up or claim a key, and to insert or evict one: a build
+# (warm-up and capture, seconds) runs outside it, so a shape already built
+# proves while another builds; a thread that meets a key being built waits
+# for that build alone and takes its graph.
 _MEM_LOCK = threading.Lock()
+# Held by a capture and its instantiation: no two captures run at once.
+_CAPTURE_LOCK = threading.Lock()
 
 
-def get_fused_fn(machine, pk, chips, trace_domains, traces, public_values, device):
+def _claim(key):
+    """(the built _FusedShard of `key`, None), held against eviction until
+    its replay is issued; or (None, the Event of the build this thread now
+    owns)."""
+    while True:
+        with _MEM_LOCK:
+            fs = _MEM.pop(key, None)
+            if fs is not None:
+                _MEM[key] = fs  # the newest last
+                fs.users += 1
+                return fs, None
+            pending = _BUILDS.get(key)
+            if pending is None:
+                pending = _BUILDS[key] = threading.Event()
+                return None, pending
+        pending.wait()  # built (or failed: then this thread may claim it)
+
+
+def _evict() -> list:
+    """Under _MEM_LOCK: take out the least recently used graphs past
+    _MEM_MAX that no call holds (one being built is not in _MEM yet)."""
+    out = []
+    for key in list(_MEM):
+        if len(_MEM) <= _MEM_MAX:
+            break
+        if _MEM[key].users == 0:
+            out.append(_MEM.pop(key))
+    return out
+
+
+def get_fused_fn(machine, pk, chips, trace_domains, traces, public_values, device,
+                 member=None):
     """Prove one shard through the _FusedShard of its (machine, shape,
-    device). Returns (the _FusedShard, whether this call built it, the
-    shard's fetch vector, the CUDA events around its replay or None). The
-    first shard of a shape builds it: the warm-up proves that shard and the
-    capture follows (a CUDA device); later shards are loaded into its
-    buffers and replay."""
-    key = _machine_key(machine, pk, chips, trace_domains, device)
-    with _MEM_LOCK:
-        fs = _MEM.pop(key, None)
-        built = fs is None
-        if built:
+    device, mesh member). Returns (the _FusedShard, whether this call built
+    it, the shard's fetch vector, the CUDA events around its replay or
+    None). The first shard of a shape builds it: the warm-up proves that
+    shard and the capture follows (a CUDA device); later shards are loaded
+    into its buffers and replay, on the caller's current stream."""
+    key = _machine_key(machine, pk, chips, trace_domains, device, member)
+    fs, build = _claim(key)
+    evicted = []
+    if build is not None:
+        try:
             fs = _FusedShard(machine, pk, chips, trace_domains, traces, public_values, device)
-            fetch, events = fs.warm_and_capture(), None
-        _MEM[key] = fs  # the newest last
-        while len(_MEM) > _MEM_MAX:
-            _MEM.pop(next(iter(_MEM)))
-    if not built:
-        with fs.lock:
-            fs.fill(traces, public_values)
-            fetch, events = fs()
+            fetch = fs.warm_and_capture()
+            with _MEM_LOCK:
+                _MEM[key] = fs
+                evicted = _evict()
+        finally:
+            with _MEM_LOCK:
+                del _BUILDS[key]
+            build.set()
+        built, events = True, None
+    else:
+        try:
+            with fs.lock:
+                fs.fill(traces, public_values)
+                fetch, events = fs()
+        finally:
+            with _MEM_LOCK:
+                fs.users -= 1
+                evicted = _evict()
+        built = False
+    for old in evicted:
+        old.release()
     return fs, built, fetch, events
 
 
