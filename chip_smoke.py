@@ -12,9 +12,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      shape the main path launches them with (K1_SHAPES, K2_SIZES, K3_SHAPES,
      K4_CASES below; phase 5 fails if its prove launches a shape that is not
      among them), and K1-K3 on a subsample and K4 on every case against the
-     host numpy Poseidon2 and challenger; kernel and plain times from CUDA
-     events (K1-K3 over inputs that exceed the L2), beside the bound
-     (ziren_tpu_torch/tools/kernel_bench.py defines it);
+     host numpy Poseidon2 and challenger; K3 on every cluster split
+     (K3_SPLITS), K4 at (4, 16) on the seeded transcripts of
+     kernel_bench.K4_TRANSCRIPTS (witnesses below 2^10, around 2^16, above
+     131,072), and K3 and K4 each replayed three times from a CUDA graph on
+     new inputs; kernel and plain times from CUDA events (K1-K3 over inputs
+     that exceed the L2), beside the bound (ziren_tpu_torch/tools/
+     kernel_bench.py defines it) and, for K3, its latency floor (one
+     permutation's latency, from a chain timed on the card);
   4. a dev-config MIPS fibonacci(30) shard proved by the port, byte-equal to
      the host prover's proof, and verified;
   5. the main path: fibonacci(58218) at the core config (log_blowup 1,
@@ -206,6 +211,12 @@ K3_CLI_SHAPES = [(256, (128, 64, 32, 16, 8))]
 # grinds, at the bits of every config the paths use (16: core, compressed;
 # 4: dev, compressed_dev; 2: outer_dev).
 K4_CASES = [(n_in, bits) for bits in (16, 4, 2) for n_in in range(8)]
+# K3 on every cluster size (h, injected heights, blocks), with injected
+# levels above the split between the blocks and block 0's cross levels, on
+# it and below it.
+K3_SPLITS = [(256, (128, 64, 8, 4, 1), 8), (128, (64, 4, 2, 1), 4), (64, (32, 2, 1), 2),
+             (64, (16, 8, 4, 1), 8), (16, (8, 4, 2, 1), 8), (8, (4, 2, 1), 4), (4, (2, 1), 2),
+             (32, (8, 1), 1)]
 # The precompile path (phase 11): the grouped programs and the two chains
 # at the core config. K1 hashes the traces of one height as one matrix:
 # rows up to 6,988 words at 8,192 and 16,384 (KeccakSponge's 6,913 columns
@@ -345,11 +356,14 @@ def phase_kernels(dev) -> dict:
         x = tf.from_host(rand(m, 16), dev)
         assert torch.equal(kernels.permute_variant(x, True), kernels.permute_variant(x, False)), m
     # K3's second floor: its levels form a chain, each at least one
-    # permutation's latency (K2 at m = 1 less a launch)
+    # permutation's latency in its form, taken on the card
     launch = kb.launch_ms(dev)
-    perm_ms = rec["permute"]["shapes"][(1, 16)][0]
-    print(f"  a launch of the least kernel: {launch:.4f} ms; K2 at m = 1: {perm_ms:.4f} ms",
-          flush=True)
+    latency = kb.permute_latency(dev)
+    perm_ms = latency[kb.K3_FORM]["ms"]
+    print(f"  a launch of the least kernel: {launch:.4f} ms; one permutation's latency "
+          "in a chain of dependent ones: "
+          + ", ".join(f"{k} {v['cycles']:.0f} cycles, {v['ms']:.5f} ms" for k, v in latency.items())
+          + f" (K3 takes {kb.K3_FORM})", flush=True)
     for h, heights in K3_ALL_SHAPES:
         cur = tf.from_host(rand(h, 8), dev)
         inj = {hh: tf.from_host(rand(hh, 8), dev) for hh in heights}
@@ -364,10 +378,22 @@ def phase_kernels(dev) -> dict:
              kb.cuda_ms(lambda x: kernels.compress_levels(x, inj), xs, 50),
              kb.cuda_ms(lambda x: tp2.compress_levels_plain(x, inj), xs[:1], 3),
              kb.k3_bound(h, inj))
-        floor = kb.k3_chain_floor(h, perm_ms, launch)
-        rec["compress_levels"].setdefault("chain_floor", {})[(h, heights)] = floor
-        print(f"    chain floor {floor:.4f} ms ({h.bit_length() - 1} dependent levels)",
+        floor = kb.k3_latency_floor(h, len(heights), perm_ms, launch)
+        rec["compress_levels"].setdefault("latency_floor", {})[(h, heights)] = floor
+        ms = rec["compress_levels"]["shapes"][(h, heights)][0]
+        print(f"    latency floor {floor:.4f} ms ({h.bit_length() - 1} levels and "
+              f"{len(heights)} injected, a launch): {100 * floor / ms:.1f}% of the kernel's time",
               flush=True)
+    # every cluster that splits a level, with injected levels on both sides
+    for h, heights, blocks in K3_SPLITS:
+        cur = tf.from_host(rand(h, 8), dev)
+        inj = {hh: tf.from_host(rand(hh, 8), dev) for hh in heights}
+        got = kernels.compress_levels_split(cur, inj, blocks)
+        want = tp2.compress_levels_plain(cur, inj)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want)), \
+            (h, heights, blocks)
+    print(f"  compress_levels on {len(K3_SPLITS)} cluster splits: bit-exact", flush=True)
     for n_in, bits in K4_CASES:
         host = DuplexChallenger()
         host.observe_slice(rng.integers(0, 2130706433, 24 + n_in, dtype=np.uint32))
@@ -384,7 +410,82 @@ def phase_kernels(dev) -> dict:
              kb.cuda_ms(lambda x: kernels.grind(x, inputs, bits), [state], 20),
              kb.cuda_ms(lambda x: tch._grind(x, inputs, bits, n_in), [state], 2),
              kb.k4_bound(int(got), n_in))
+    # the main path's grind on transcripts whose witnesses lie below 2^10,
+    # around 2^16 and above 131,072
+    n_in, bits = kb.K4_MAIN
+    for seed in kb.K4_TRANSCRIPTS:
+        host = kb.k4_transcript(seed)
+        state, inputs = kb.k4_inputs(host, dev)
+        got = kernels.grind(state, inputs, bits)
+        want = tch._grind(state, inputs, bits, n_in)
+        torch.cuda.synchronize()
+        witness = host.grind(bits)
+        assert torch.equal(got, want) and int(got) == witness, seed
+        ms = kb.cuda_ms(lambda x: kernels.grind(x, inputs, bits), [state], 20)
+        bound = kb.k4_bound(witness, n_in)
+        rec["grind"].setdefault("bands", {})[witness] = (ms, *bound)
+        print(f"  grind {kb.K4_MAIN}, transcript {seed}: witness {witness}, bit-exact, "
+              f"kernel {ms:.4f} ms, bound {bound[0]:.4f} ms ({100 * bound[0] / ms:.1f}%)",
+              flush=True)
+    graph_replays(dev, rand)
     return rec
+
+
+def graph_replays(dev, rand) -> None:
+    """K3 and K4 each captured in a CUDA graph and replayed three times with
+    new inputs copied into its buffers, each replay bit-exact against the
+    plain version: K4 resets its scratch (best witness, counter) inside the
+    graph, and a counter kept from the last replay would skip candidates."""
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.ops import tchallenger as tch
+    from ziren_tpu_torch.ops import tfield as tf
+    from ziren_tpu_torch.ops import tposeidon2 as tp2
+    from ziren_tpu_torch.tools import kernel_bench as kb
+
+    def replay3(capture, fill, check):
+        capture()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = capture()
+        for i in range(3):
+            fill(i)
+            graph.replay()
+            torch.cuda.synchronize()
+            check(i, out)
+
+    h, heights = (256, (128, 64, 8, 1))
+    cur = tf.from_host(rand(h, 8), dev)
+    inj = {hh: tf.from_host(rand(hh, 8), dev) for hh in heights}
+
+    def fill3(_i):
+        cur.copy_(tf.from_host(rand(h, 8), dev))
+        for hh, x in inj.items():
+            x.copy_(tf.from_host(rand(hh, 8), dev))
+
+    def check3(i, levels):
+        want = tp2.compress_levels_plain(cur, inj)
+        assert all(torch.equal(g, w) for g, w in zip(levels, want)), ("K3 replay", i)
+
+    replay3(lambda: kernels.compress_levels(cur, inj), fill3, check3)
+    n_in, bits = kb.K4_MAIN
+    hosts = [kb.k4_transcript(s) for s in kb.K4_TRANSCRIPTS[::3]]
+    state, inputs = (x.clone() for x in kb.k4_inputs(hosts[-1], dev))
+    witnesses = []
+
+    def fill4(i):
+        st, inp = kb.k4_inputs(hosts[i], dev)
+        state.copy_(st)
+        inputs.copy_(inp)
+
+    def check4(i, w):
+        witnesses.append(int(w))
+        assert int(w) == hosts[i].grind(bits), ("K4 replay", i)
+        assert torch.equal(w, tch._grind(state, inputs, bits, n_in)), ("K4 replay", i)
+
+    replay3(lambda: kernels.grind(state, inputs, bits), fill4, check4)
+    print(f"  compress_levels {(h, heights)} and grind {kb.K4_MAIN} in CUDA graphs: three "
+          f"replays each on new inputs, bit-exact (witnesses {witnesses})", flush=True)
 
 
 def phase_small_shard(dev) -> tuple:
@@ -1413,9 +1514,15 @@ def run(dev, procs) -> None:
 
     print("phase 2: build", flush=True)
     print(f"  kernels built and loaded in {kernels.build():.3f} s", flush=True)
-    for line in kernels.build_log().splitlines():
+    log = kernels.build_log()
+    for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip(), flush=True)
+    for name in ("compress_levels_kernel", "grind_kernel"):  # redesigned in K3 and K4
+        part = log.split(name, 1)[1].split("Compiling entry", 1)[0]
+        print(f"  ptxas, {name}: " + "; ".join(
+            ln.strip() for ln in part.splitlines()
+            if "registers" in ln or "spill" in ln), flush=True)
 
     rec = phase(3, "kernels vs plain PyTorch on the card", phase_kernels, dev)
     small = phase(4, "small shard, port vs host prover", phase_small_shard, dev)
@@ -1447,8 +1554,8 @@ def run(dev, procs) -> None:
                 + precompile_launches[name] + mesh_launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                "shape": str(shape), **({"chain_floor_ms": r["chain_floor"][shape]}
-                                        if "chain_floor" in r else {})}
+                "shape": str(shape), **({"latency_floor_ms": r["latency_floor"][shape]}
+                                        if "latency_floor" in r else {})}
 
     print(json.dumps({"kernels": [
         entry("hash_rows", "ziren_tpu/ops/jposeidon2.py:235", (1 << 17, 108)),

@@ -1,9 +1,9 @@
 """The hand-written CUDA kernels (ziren_tpu_torch.kernels) and their routing.
 
 The wrapper checks and the routing run everywhere. The kernel cases, marked
-`cuda`, need a CUDA device: they hold K1, K2 (both variants), K3 and K4
-against the plain PyTorch versions bit for bit and skip on a machine without
-one. This file imports no JAX, so the kernel cases also run on the card:
+`cuda`, need a CUDA device: they hold K1, K2 (both variants), K3 (on every
+cluster size) and K4 against the plain PyTorch versions bit for bit, also
+when replayed from a CUDA graph, and skip on a machine without one. This file imports no JAX, so the kernel cases also run on the card:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 """
@@ -124,6 +124,92 @@ def test_k3_matches_plain(cuda, h, heights):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+# (h, injected heights, blocks): clusters that split a tree with injected
+# levels above the split, on it (hh = B), just below it and at the root
+K3_SPLITS = [(256, (128, 64, 8, 4, 1), 8), (64, (32, 2, 1), 2), (64, (16, 8, 4, 1), 8),
+             (16, (8, 4, 2, 1), 8), (8, (4, 2, 1), 4), (4, (2, 1), 2), (32, (8, 1), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,heights,blocks", K3_SPLITS)
+def test_k3_cluster_split_matches_plain(cuda, h, heights, blocks):
+    """Every cluster size, with injected levels that straddle the split
+    between the blocks' subtrees and block 0's cross levels."""
+    cur = tf.from_host(rand((h, 8), h + blocks), cuda)
+    inj = {hh: tf.from_host(rand((hh, 8), 7 * hh + blocks), cuda) for hh in heights}
+    got = kernels.compress_levels_split(cur, inj, blocks)
+    want = tp2.compress_levels_plain(cur, inj)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)) and len(got) == len(want)
+
+
+def _replays(capture_fn, fill, check, times=3):
+    """Capture capture_fn() in a CUDA graph, then `times` times: fill the
+    static inputs anew, replay, and check the static output."""
+    out = capture_fn()  # warm-up outside the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = capture_fn()
+    for i in range(times):
+        fill(i)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(out)
+
+
+@pytest.mark.cuda
+def test_k3_and_k4_in_graph_replays(cuda):
+    """K3 and K4 captured in a CUDA graph and replayed three times on new
+    inputs copied into the graph's buffers: each replay equals the plain
+    version (K4's scratch, best witness and counter, is reset inside the
+    graph, so a replay finds the smallest witness again)."""
+    cur = tf.from_host(rand((256, 8), 3), cuda)
+    inj = {hh: tf.from_host(rand((hh, 8), hh), cuda) for hh in (128, 64, 8, 1)}
+
+    def fill3(i):
+        cur.copy_(tf.from_host(rand((256, 8), 50 + i), cuda))
+        for hh, x in inj.items():
+            x.copy_(tf.from_host(rand((hh, 8), 60 + i + hh), cuda))
+
+    def check3(levels):
+        want = tp2.compress_levels_plain(cur, inj)
+        assert all(torch.equal(g, w) for g, w in zip(levels, want))
+
+    _replays(lambda: kernels.compress_levels(cur, inj), fill3, check3)
+
+    hosts = []
+    for seed in range(3):
+        rng = np.random.default_rng(900 + seed)
+        host = DuplexChallenger()
+        host.observe_slice(rng.integers(0, F.P_INT, 8 * 3 + 4, dtype=np.uint32))
+        hosts.append(host)
+    tc = tch.TChallenger.from_host(hosts[0].clone(), cuda)
+    state, inputs = tc.state.clone(), tc._concat_buffer().contiguous().clone()
+    want = []
+
+    def fill4(i):
+        t = tch.TChallenger.from_host(hosts[i].clone(), cuda)
+        state.copy_(t.state)
+        inputs.copy_(t._concat_buffer())
+        want.append(hosts[i].grind(12))
+
+    def check4(w):
+        assert int(w) == want[-1]
+        assert torch.equal(w, tch._grind(state, inputs, 12, 4))
+
+    _replays(lambda: kernels.grind(state, inputs, 12), fill4, check4)
+
+
+@pytest.mark.cuda
+def test_permute_latency_probe(cuda):
+    """The latency probe runs each form's chain and reports its cycles,
+    more for a longer chain."""
+    for form in (0, 1, 2, 3):
+        short = int(kernels.permute_latency(form, 4, cuda))
+        long = int(kernels.permute_latency(form, 64, cuda))
+        assert 0 < short < long
+
+
 @pytest.mark.cuda
 def test_k3_rejects_bad_heights(cuda):
     with pytest.raises(ValueError):
@@ -135,6 +221,8 @@ def test_k3_rejects_bad_heights(cuda):
         kernels.compress_levels(cur, {64: cur})
     with pytest.raises(ValueError):
         kernels.compress_levels(cur, {16: cur[:8]})
+    with pytest.raises(ValueError):  # 64 digests cannot go to one block of 32
+        kernels.compress_levels_split(cur, {}, 1)
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ the imports rewritten; the device layers are ported:
   stark/ici.py         one commit's rows over a mesh, and the four-step NTT
   kernels.py           the hand-written CUDA kernels (csrc/poseidon2.cu):
                        K1 hash_rows, K2 permute, K3 compress_levels, K4 grind
+  ops/kplans.py        K3's and K4's launch plans, and their plain executors
   tools/kernel_bench.py  checks and times the kernels on a GPU
 
 Field elements are canonical int64 values in [0, p). Every function takes

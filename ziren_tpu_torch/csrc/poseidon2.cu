@@ -14,14 +14,20 @@
 // h <= 256, and writes every level below it down to the root in one
 // launch (the loop of ops/tpcs.py:merkle_levels, jpcs._merkle_levels in the
 // JAX package), compressing in the digests of shorter matrices where a
-// level has them.
+// level has them. Its operations bound is far below its time: its log2(h)
+// levels (and each injected level) form a chain of dependent permutations,
+// so it is bound by the latency of one permutation, not by the int32 pipe.
+// It runs over a thread-block cluster of up to 8 blocks, each a subtree of
+// at most 32 digests, a warp a pair, with the 16-lane form whose internal
+// rounds sum by warp reduction, the shortest chain of the forms measured.
 // K4 zt_grind is the proof-of-work grind of the Fiat-Shamir transcript, the
 // lax.while_loop of ziren_tpu/ops/jchallenger.py:_grind: the smallest
 // witness w whose duplex gives a sample with nb_bits low zero bits, found in
 // one launch and left on the device, so a shard's prove holds no host wait
 // and can be captured into one CUDA graph. It is bound by the same integer
-// pipe: (w + 1) permutations at least; its threads stop once a smaller
-// witness is known.
+// pipe: (w + 1) permutations at least. Its warps claim candidates in
+// increasing order and stop once the claims pass the best witness, so it
+// tests about the witness plus one wave of the blocks the card holds.
 //
 // What bounds them: 32-bit integer instructions. The permutation is 490
 // field products and about 1,200 field additions, all on the int32 pipe;
@@ -46,11 +52,12 @@
 //   * K2 has two variants: one thread a state for large m, and 16 lanes a
 //     state (one word a lane, the linear layers through warp shuffles) for
 //     small m, where the card would stand empty and one permutation would
-//     be a chain of 490 dependent products. K3 uses the 16-lane form with
-//     the level in shared memory.
+//     be a chain of 490 dependent products. K3 takes a warp a state, 16
+//     lanes of it, and sums an internal round by warp reduction.
 //
 // Tensors are canonical int64 in [0, p) on both sides.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -380,71 +387,363 @@ permute_coop_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
   if (live) out[gid] = from_mont(s);
 }
 
-// K3: one block; the level lives in shared memory as lazy Montgomery
-// words and is halved in place. Each 16-lane group compresses one pair a
-// batch (read, barrier, permute, write); a level with injected digests
-// takes a second permutation of (compressed || injected) before the write.
-// A warp whose two groups have no pair in a batch skips the permutation.
-// inj.p[k] points to the (2^k, 8) digests injected into the level of
-// height 2^k, or is null where that level has none. `out` receives the
-// levels h/2, h/4, ..., 1 one after the other.
-constexpr int LEVEL_THREADS = 1024;
-constexpr int LEVEL_MAX = ZT_LEVEL_MAX;
+// ---------------------------------------------------------------------------
+// 4 lanes a state: lane q of each 4-lane group holds words 4q .. 4q+3. M4
+// stays in registers; M_E's sum over the four blocks and an internal round's
+// sum over the 16 words are two butterfly shuffles each. Every lane keeps a
+// copy of word 0 through the internal rounds and computes its S-box itself,
+// so the sum waits for no broadcast. Measured against the other forms by
+// permute_latency_kernel only: on an H100 its chain is longer than the
+// 16-lane forms' (tools/kernel_bench.py, PERF.md), so no kernel uses it.
+// ---------------------------------------------------------------------------
+
+struct Quad {
+  int q;              // 0..3
+  int32_t rc[8][4];   // this lane's biased constants of the 8 external rounds
+  uint32_t k[4], mask[4], a[4], c[4];
+  int64_t sign[4];
+};
+
+__device__ __forceinline__ Quad make_quad(int q) {
+  Quad l;
+  l.q = q;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      l.rc[r][i] = ZT_RC_BIAS_G[r][4 * q + i];
+      l.rc[4 + r][i] = ZT_RC_BIAS_G[17 + r][4 * q + i];
+    }
+    l.k[i] = DIAG_K[4 * q + i];
+    l.mask[i] = (1u << l.k[i]) - 1u;
+    l.a[i] = DIAG_A[4 * q + i];
+    l.c[i] = l.k[i] ? (127u << (24 - l.k[i])) : 0u;
+    l.sign[i] = DIAG_SIGN[4 * q + i];
+  }
+  return l;
+}
+
+// M_E: out = M4 x + (the sum of M4 x over the group's four lanes); x below
+// 2^32, so the sums stay below 35 * 2^32.
+__device__ __forceinline__ void quad_linear(const uint32_t x[4], uint32_t s[4]) {
+  const uint64_t x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
+  const uint64_t t01 = x0 + x1, t23 = x2 + x3, t0123 = t01 + t23;
+  const uint64_t t01123 = t0123 + x1, t01233 = t0123 + x3;
+  const uint64_t u[4] = {t01123 + t01, t01123 + 2 * x2, t01233 + t23, t01233 + 2 * x0};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint64_t v = u[i] + __shfl_xor_sync(FULL, u[i], 1);
+    v += __shfl_xor_sync(FULL, v, 2);
+    s[i] = red(u[i] + v);
+  }
+}
+
+__device__ __forceinline__ void quad_external(uint32_t s[4], const int32_t rc[4]) {
+  uint32_t x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[i] = static_cast<uint32_t>(sbox_rc(s[i], rc[i]) + static_cast<int32_t>(P));
+  }
+  quad_linear(x, s);
+}
+
+// w0: word 0, the same in the group's four lanes. The offset 9p keeps the
+// signed diagonal terms positive, as in internal_round.
+__device__ __forceinline__ void quad_internal(uint32_t s[4], uint32_t& w0, int32_t rc0,
+                                              const Quad& l) {
+  uint64_t part = (l.q == 0 ? 0ull : static_cast<uint64_t>(s[0])) + s[1] + s[2] + s[3];
+  part += __shfl_xor_sync(FULL, part, 1);
+  part += __shfl_xor_sync(FULL, part, 2);
+  const uint32_t boxed = static_cast<uint32_t>(sbox_rc(w0, rc0) + static_cast<int32_t>(P));
+  const uint64_t t = part + boxed + 9 * P64;
+  if (l.q == 0) s[0] = boxed;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t hi = s[i] >> l.k[i];
+    const int64_t lo = s[i] & l.mask[i];
+    const int64_t term = l.sign[i] * (static_cast<int64_t>(l.a[i]) * hi -
+                                      lo * static_cast<int64_t>(l.c[i]));
+    s[i] = red(static_cast<uint64_t>(static_cast<int64_t>(t) + term));
+  }
+  w0 = red(t - 2 * static_cast<uint64_t>(boxed));  // lane 0's s[0]
+}
+
+// The permutation with four lazy words a lane; every lane of the warp calls it.
+__device__ __forceinline__ void permute_quad(uint32_t s[4], const Quad& l) {
+  {
+    const uint32_t x[4] = {s[0], s[1], s[2], s[3]};
+    quad_linear(x, s);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) quad_external(s, l.rc[r]);
+  uint32_t w0 = __shfl_sync(FULL, s[0], 0, 4);
+#pragma unroll
+  for (int r = 4; r < 17; ++r) quad_internal(s, w0, ZT_RC_BIAS[r][0], l);
+#pragma unroll
+  for (int r = 4; r < 8; ++r) quad_external(s, l.rc[r]);
+}
+
+// ---------------------------------------------------------------------------
+// 16 lanes a state, one state a warp, the internal rounds' sum by warp
+// reduction: lanes 0..15 hold words 0..15 (lanes 16..31 run a state of their
+// own that no sum reads), the linear layers go through shuffles as in
+// permute_coop, and an internal round's sum over the 16 words is two
+// REDUX instructions (the low and the high 16 bits of each word, summed over
+// the warp) in place of four dependent shuffle stages. Every lane keeps a
+// copy of word 0 through the internal rounds and computes its S-box itself,
+// and the diagonal is one Montgomery product by its constant.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t permute_redux(uint32_t s, const Lane& l, int32_t diag) {
+  const int warp_lane = static_cast<int>(threadIdx.x & 31);
+  const bool summed = warp_lane != 0 && warp_lane < 16;  // words 1..15
+  s = coop_linear(s, l.lane);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    s = coop_linear(static_cast<uint32_t>(sbox_rc(s, l.rc[r]) + static_cast<int32_t>(P)), l.lane);
+  }
+  uint32_t w0 = __shfl_sync(FULL, s, 0);
+#pragma unroll
+  for (int r = 4; r < 17; ++r) {
+    const uint32_t x = summed ? s : 0u;
+    const uint32_t lo = __reduce_add_sync(FULL, x & 0xffffu);
+    const uint32_t hi = __reduce_add_sync(FULL, x >> 16);
+    const uint32_t boxed =
+        static_cast<uint32_t>(sbox_rc(w0, ZT_RC_BIAS[r][0]) + static_cast<int32_t>(P));
+    const uint64_t t = (static_cast<uint64_t>(hi) << 16) + lo + boxed + 9 * P64;
+    const uint32_t in = l.lane == 0 ? boxed : s;
+    s = red(static_cast<uint64_t>(static_cast<int64_t>(t) +
+                                  smont(static_cast<int32_t>(fix(in)), diag)));
+    w0 = red(t - 2 * static_cast<uint64_t>(boxed));  // lane 0's s, up to p
+  }
+#pragma unroll
+  for (int r = 4; r < 8; ++r) {
+    s = coop_linear(static_cast<uint32_t>(sbox_rc(s, l.rc[r]) + static_cast<int32_t>(P)), l.lane);
+  }
+  return s;
+}
+
+// K3: the levels below h <= 256 digests over a cluster of B blocks (the
+// plan is ops/kplans.py:k3_plan). Block b loads digests [b h/B, (b+1) h/B)
+// and its rows [b hh/B, (b+1) hh/B) of each injected level hh >= B, and
+// halves its level in shared memory (ping-pong buffers, one barrier a
+// level) down to its subtree's root; each warp compresses one pair a level
+// (permute_redux), and a level with injected digests takes a second
+// permutation of (compressed || injected). The roots go into block 0's
+// shared memory (distributed shared memory, one cluster barrier), and block
+// 0 runs the last log2(B) levels with the injected levels below B.
+// inj.p[k] points to the (2^k, 8) digests injected into the level of height
+// 2^k, or is null. `out` receives the levels h/2, h/4, ..., 1 one after the
+// other: the level of height hh at row h - 2 hh.
+constexpr int LEVEL_WARPS = 16;                  // pairs on a block's top level
+constexpr int LEVEL_THREADS = 32 * LEVEL_WARPS;
+constexpr int LEVEL_SUB_MAX = 2 * LEVEL_WARPS;   // digests a block: 32
+constexpr int CLUSTER_MAX = 8;
 constexpr int INJ_LEVELS = 8;  // injected heights 1 .. 128
-static_assert(LEVEL_MAX <= (1 << INJ_LEVELS), "an injected level is below LEVEL_MAX");
+constexpr int INJ_ROWS_MAX = LEVEL_SUB_MAX / 2;
+static_assert(CLUSTER_MAX * LEVEL_SUB_MAX == ZT_LEVEL_MAX, "K3's tallest level");
 
 struct Injected {
   const int64_t* p[INJ_LEVELS];
 };
 
-__global__ void __launch_bounds__(LEVEL_THREADS)
-compress_levels_kernel(const int64_t* __restrict__ in, const Injected inj,
-                       int64_t* __restrict__ out, int h) {
-  __shared__ uint32_t cur[LEVEL_MAX * 8];
-  const int tid = threadIdx.x;
-  const int group = tid >> 4;
-  const Lane l = make_lane(tid & 15);
-  for (int i = tid; i < h * 8; i += LEVEL_THREADS) cur[i] = to_mont(in[i]);
-  __syncthreads();
-  int64_t out_off = 0;
-  for (int hh = h >> 1; hh >= 1; hh >>= 1) {
-    const int64_t* injected = nullptr;
-#pragma unroll
-    for (int k = 0; k < INJ_LEVELS; ++k) {
-      if (hh == (1 << k)) injected = inj.p[k];
-    }
-    for (int j0 = 0; j0 < hh; j0 += LEVEL_THREADS / 16) {
-      const int j = j0 + group;
-      const bool live = j < hh;
-      uint32_t s = live ? cur[16 * j + l.lane] : 0u;
-      __syncthreads();
-      if (j0 + 2 * (tid >> 5) >= hh) continue;  // a warp with no pair left
-      s = permute_coop(s, l);
-      if (injected) {
-        if (l.lane >= 8) s = to_mont(live ? injected[j * 8 + (l.lane - 8)] : 0);
-        s = permute_coop(s, l);
-      }
-      if (live && l.lane < 8) {
-        cur[8 * j + l.lane] = s;
-        out[(out_off + j) * 8 + l.lane] = from_mont(s);
-      }
-    }
-    __syncthreads();
-    out_off += hh;
+// One level of `pairs` pairs: src holds 2 * pairs digests, dst and out
+// receive `pairs`; inj (shared, Montgomery) holds `pairs` injected rows or
+// is null. A warp with no pair returns at once.
+__device__ __forceinline__ void warp_level(const uint32_t* src, uint32_t* dst, int pairs,
+                                           const uint32_t* inj, int64_t* __restrict__ out,
+                                           const Lane& l, int32_t diag) {
+  const int w = static_cast<int>(threadIdx.x >> 5);
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  if (w >= pairs) return;
+  uint32_t s = lane < 16 ? src[16 * w + lane] : 0u;
+  s = permute_redux(s, l, diag);
+  if (inj) {
+    if (lane >= 8 && lane < 16) s = inj[8 * w + lane - 8];
+    s = permute_redux(s, l, diag);
+  }
+  if (lane < 8) {
+    dst[8 * w + lane] = s;
+    out[8 * w + lane] = from_mont(s);
   }
 }
 
-// K4: one thread a candidate witness, a grid-stride loop over w = 0, 1, ...
-// below p. A thread builds [inputs, w, state past n_in] in Montgomery form,
-// permutes it, and tests the low bits of the CANONICAL word 7 (the sample
-// the transcript draws next). On a hit it lowers *best with atomicMin and
-// stops; it also stops at its first candidate above *best, so every
-// candidate below the final *best was tested and *best is the smallest
-// witness. *best is p (no witness) on entry; the wrapper resets it on the
-// same stream.
+__global__ void __launch_bounds__(LEVEL_THREADS)
+compress_levels_kernel(const int64_t* __restrict__ in, const Injected inj,
+                       int64_t* __restrict__ out, int h) {
+  __shared__ uint32_t buf[2][LEVEL_SUB_MAX * 8];
+  __shared__ uint32_t injs[INJ_LEVELS][INJ_ROWS_MAX * 8];
+  __shared__ uint32_t roots[2][CLUSTER_MAX * 8];
+  const int nb = static_cast<int>(gridDim.x);  // B, the cluster
+  const int b = static_cast<int>(blockIdx.x);
+  const int sub = h / nb;
+  const int tid = threadIdx.x;
+  const Lane l = make_lane(tid & 15);
+  const int32_t diag = ZT_DIAG_MONT[tid & 15];
+  for (int i = tid; i < sub * 8; i += LEVEL_THREADS) buf[0][i] = to_mont(in[b * sub * 8 + i]);
+  unsigned int has = 0;  // bit k: the level of height 2^k has injected digests
+#pragma unroll
+  for (int k = 0; k < INJ_LEVELS; ++k) {
+    const int hh = 1 << k;
+    const int64_t* src = inj.p[k];
+    int rows = 0;
+    if (src && hh >= nb) {
+      rows = hh / nb;
+      src += b * rows * 8;
+    } else if (src && b == 0) {
+      rows = hh;
+    }
+    if (src) has |= 1u << k;
+    for (int i = tid; i < rows * 8; i += LEVEL_THREADS) injs[k][i] = to_mont(src[i]);
+  }
+  __syncthreads();
+  int cur = 0;
+  for (int lh = sub >> 1; lh >= 1; lh >>= 1) {
+    const int hh = lh * nb;
+    const int k = __ffs(hh) - 1;
+    warp_level(buf[cur], buf[cur ^ 1], lh, (has >> k) & 1u ? injs[k] : nullptr,
+               out + static_cast<int64_t>(h - 2 * hh + b * lh) * 8, l, diag);
+    __syncthreads();
+    cur ^= 1;
+  }
+  if (nb == 1) return;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  uint32_t* dst = cluster.map_shared_rank(&roots[0][0], 0);
+  if (tid < 8) dst[8 * b + tid] = buf[cur][tid];
+  cluster.sync();
+  if (b != 0) return;
+  cur = 0;
+  for (int hh = nb >> 1; hh >= 1; hh >>= 1) {
+    const int k = __ffs(hh) - 1;
+    warp_level(roots[cur], roots[cur ^ 1], hh, (has >> k) & 1u ? injs[k] : nullptr,
+               out + static_cast<int64_t>(h - 2 * hh) * 8, l, diag);
+    __syncthreads();
+    cur ^= 1;
+  }
+}
+
+// K4: the ordered search (ops/kplans.py:k4_plan). scratch[0] is the best
+// witness, scratch[GRIND_COUNTER] the claim counter, a cache line apart so
+// that a read of the best waits for no queue of atomics on the counter; the
+// wrapper fills the scratch with p on the launch's stream, and the counter
+// counts claims from p. The first chunks are claimed by position: warp g of
+// the grid takes [g chunk, (g + 1) chunk), so the first wave waits for no
+// atomic and reads no best; every later chunk is claimed with one
+// atomicAdd, issued one chunk ahead so that its latency hides behind the
+// permutations. After each chunk a warp reads the best witness (before it
+// issues the next atomic, which would hold the read up) and stops if no
+// claimed chunk can lie below it (it is at most the first claimed start) or
+// its next chunk starts at or above it; else each lane tests its candidates
+// of the chunk (lane, lane + 32, ...) below it, and a hit lowers it with
+// atomicMin. A lane also drops a candidate between its rounds once the best
+// is at or below it: the warps that finish a wave just before the witness's
+// warp do not run a whole second wave. Claims go out in increasing order, so
+// every candidate below the final best lies in a claimed chunk and was
+// tested: the final best is the smallest witness.
+//
+// A candidate w enters the state as word n_in. The initial linear layer is
+// linear, so each thread applies it once to the 15 fixed words (w = 0) and
+// a candidate adds w times column n_in of M_E; of the last M_E only word 7,
+// the sample, is computed.
+
+constexpr int GRIND_COUNTER = 16;  // ops/kplans.py:K4_COUNTER
+
+// M_E's entry (j, n): M4[j % 4][n % 4], twice within the diagonal block;
+// M4 row r is (2, 3, 1, 1) turned right r times.
+__device__ __forceinline__ uint32_t me_entry(int j, int n) {
+  const int d = (n - j) & 3;
+  const uint32_t m4 = d == 0 ? 2u : d == 1 ? 3u : 1u;
+  return (j >> 2) == (n >> 2) ? 2u * m4 : m4;
+}
+
+// Word 7 of M_E over the S-boxes of the last round, signed in (-p, p):
+// M4 row 3 (3, 1, 1, 2) of block 1 plus the sum of the four blocks, offset 5p.
+__device__ __forceinline__ uint32_t external_word7(const int32_t x[16]) {
+  int64_t y[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    y[k] = static_cast<int64_t>(5 * P64) + x[k] + x[k + 4] + x[k + 8] + x[k + 12] + x[4 + k];
+  }
+  return red(static_cast<uint64_t>(3 * y[0] + y[1] + y[2] + 2 * y[3]));
+}
+
 __global__ void __launch_bounds__(THREADS)
 grind_kernel(const int64_t* __restrict__ state, const int64_t* __restrict__ inputs,
-             int n_in, uint32_t mask, unsigned long long* best) {
+             int n_in, uint32_t mask, unsigned long long* scratch, unsigned int chunk) {
+  uint32_t fixed[16], col[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) col[j] = me_entry(j, n_in);
+  {
+    uint32_t x[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      x[i] = i == n_in ? 0u : to_mont(i < n_in ? inputs[i] : state[i]);
+    }
+    external_linear<uint32_t>(x, fixed, 0);
+  }
+  volatile unsigned long long* best = scratch;
+  const int lane = threadIdx.x & 31;
+  const unsigned long long warps = static_cast<unsigned long long>(gridDim.x) * (THREADS / 32);
+  const unsigned long long first = warps * chunk;  // the chunks claimed by position
+  unsigned long long start = (blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5)) *
+                             static_cast<unsigned long long>(chunk);
+  unsigned long long* counter = scratch + GRIND_COUNTER;
+  unsigned long long next = 0, claim = 0, below = P64;
+  if (lane == 0) next = atomicAdd(counter, static_cast<unsigned long long>(chunk));
+  for (;;) {
+    if (start >= below) return;  // best <= p: every candidate tested is below p
+    for (unsigned long long w = start + lane; w < start + chunk && w < below; w += 32) {
+      // a candidate at or above a witness found meanwhile is dropped between
+      // its rounds; each read of the best is issued a stretch of rounds
+      // before its test, so that its latency hides behind them
+      unsigned long long seen = *best;
+      const uint64_t wm = to_mont(static_cast<int64_t>(w));
+      uint32_t s[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) s[j] = red(fixed[j] + static_cast<uint64_t>(col[j]) * wm);
+      ZT_ROUNDS
+      for (int r = 0; r < 4; ++r) external_round(s, r);
+      if (w >= seen) break;
+      seen = *best;
+      ZT_ROUNDS
+      for (int r = 4; r < 17; ++r) internal_round(s, r);
+      if (w >= seen) break;
+      ZT_ROUNDS
+      for (int r = 17; r < 20; ++r) external_round(s, r);
+      int32_t x[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) x[i] = sbox_rc(s[i], ZT_RC_BIAS[20][i]);
+      if ((static_cast<uint32_t>(from_mont(external_word7(x))) & mask) == 0u) {
+        atomicMin(scratch, w);
+        break;
+      }
+    }
+    // the best first, then the claim ahead: the read waits for no atomic
+    if (lane == 0) {
+      below = *best;
+      if (below > first) {
+        claim = next;
+        next = atomicAdd(counter, static_cast<unsigned long long>(chunk));
+      }
+    }
+    below = __shfl_sync(FULL, below, 0);
+    if (below <= first) return;  // every claimed chunk starts at first or above
+    start = __shfl_sync(FULL, claim, 0) - P64 + first;
+  }
+}
+
+// K4 for a few bits (ops/kplans.py:K4_STRIDE_MAX_BITS), PR 5's form: one
+// thread a candidate, a grid-stride loop over w = 0, 1, ... below p. A
+// thread builds [inputs, w, state past n_in] in Montgomery form, permutes
+// it, and tests the low bits of the canonical word 7. On a hit it lowers
+// *best with atomicMin and stops; it also stops at its first candidate
+// above *best, so every candidate below the final *best was tested. Where
+// a few blocks' first candidates hold the witness it is the faster form:
+// it spends nothing on the fixed words' layer, on claims or on reads of
+// the best between rounds.
+__global__ void __launch_bounds__(THREADS)
+grind_stride_kernel(const int64_t* __restrict__ state, const int64_t* __restrict__ inputs,
+                    int n_in, uint32_t mask, unsigned long long* best) {
   uint32_t base[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) base[i] = to_mont(i < n_in ? inputs[i] : state[i]);
@@ -463,9 +762,38 @@ grind_kernel(const int64_t* __restrict__ state, const int64_t* __restrict__ inpu
   }
 }
 
-// Blocks of K4: enough threads for twice the expected number of candidates
-// (2^nb_bits), at most this many blocks (8 of 128 threads on each of 132 SMs).
-constexpr long long GRIND_MAX_BLOCKS = 1056;
+// The latency of one permutation in each form: one warp runs `n` dependent
+// permutations, lane 0 times them with clock64. form 0: one thread a state
+// (permute16); 1: 4 lanes a state (permute_quad); 2: 16 lanes a state with
+// shuffles (permute_coop, K2's for small m); 3: 16 lanes a state with warp
+// reductions (permute_redux, K3's). out[lane] keeps the result live.
+__global__ void __launch_bounds__(32)
+permute_latency_kernel(int form, int n, long long* cycles, int64_t* out) {
+  const int lane = threadIdx.x;
+  uint32_t s[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = static_cast<uint32_t>(lane * 16 + i + 1);
+  const Quad q = make_quad(lane & 3);
+  const Lane c = make_lane(lane & 15);
+  const int32_t diag = ZT_DIAG_MONT[lane & 15];
+  __syncwarp();
+  const long long t0 = clock64();
+  if (form == 0) {
+    for (int i = 0; i < n; ++i) permute16(s);
+  } else if (form == 1) {
+    for (int i = 0; i < n; ++i) permute_quad(s, q);
+  } else if (form == 2) {
+    for (int i = 0; i < n; ++i) s[0] = permute_coop(s[0], c);
+  } else {
+    for (int i = 0; i < n; ++i) s[0] = permute_redux(s[0], c, diag);
+  }
+  const long long t1 = clock64();
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc += s[i];
+  out[lane] = from_mont(acc);
+  if (lane == 0) *cycles = t1 - t0;
+}
 
 unsigned int grid_for(long long threads) {
   return static_cast<unsigned int>((threads + THREADS - 1) / THREADS);
@@ -507,32 +835,88 @@ extern "C" int zt_permute(const void* in, void* out, long long m, void* stream) 
                                    : zt_permute_thread(in, out, m, stream);
 }
 
-// h a power of two, 2 <= h <= ZT_LEVEL_MAX; returns -1 for any other h.
-// `inj` is a host array of INJ_LEVELS device pointers: inj[k] the digests
-// injected at height 2^k, or null. (Measured on an H100: from 512 digests
-// up, one K2 launch a level is as fast or faster than this one block, whose
-// SM then has every warp busy.)
+// h a power of two, 2 <= h <= ZT_LEVEL_MAX, over `blocks` blocks of one
+// cluster (ops/kplans.py:k3_plan chooses them): a power of two up to 8 with
+// 2 * blocks <= h and h / blocks <= 32; returns -1 for any other h or
+// blocks. `inj` is a host array of INJ_LEVELS device pointers: inj[k] the
+// digests injected at height 2^k, or null. A cluster launch that is refused
+// returns its error; nothing takes another path.
 extern "C" int zt_compress_levels(const void* in, const void* const* inj, void* out,
-                                  int h, void* stream) {
-  if (h < 2 || h > LEVEL_MAX || (h & (h - 1))) return -1;
+                                  int h, int blocks, void* stream) {
+  if (h < 2 || h > ZT_LEVEL_MAX || (h & (h - 1))) return -1;
+  if (blocks < 1 || blocks > CLUSTER_MAX || (blocks & (blocks - 1)) || 2 * blocks > h ||
+      h / blocks > LEVEL_SUB_MAX) {
+    return -1;
+  }
   Injected levels;
   for (int k = 0; k < INJ_LEVELS; ++k) levels.p[k] = static_cast<const int64_t*>(inj[k]);
-  compress_levels_kernel<<<1, LEVEL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(in), levels, static_cast<int64_t*>(out), h);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(blocks));
+  cfg.blockDim = dim3(LEVEL_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned int>(blocks);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, compress_levels_kernel,
+                                             static_cast<const int64_t*>(in), levels,
+                                             static_cast<int64_t*>(out), h);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4's occupancy on the current device: the blocks a multiprocessor holds
+// at once (the occupancy calculator) and the multiprocessors.
+extern "C" int zt_grind_occupancy(int* per_sm, int* sms) {
+  int dev = 0;
+  *per_sm = 0;
+  *sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, grind_kernel, THREADS, 0);
+  }
+  return static_cast<int>(err);
+}
+
 // state: 16 canonical words; inputs: n_in < 8 canonical words (may be null
-// for n_in = 0); best: one int64 word holding p, the smallest witness on
-// return. Returns -1 for n_in or nb_bits out of range.
+// for n_in = 0); scratch: GRIND_COUNTER + 1 int64 words or more, all p, the
+// smallest witness in scratch[0] on return; grid, chunk and the form from
+// ops/kplans.py:k4_plan: ordered (grind_kernel, chunk a multiple of 32) or
+// not (grind_stride_kernel, chunk unused). Returns -1 for an argument out of
+// range.
 extern "C" int zt_grind(const void* state, const void* inputs, int n_in, int nb_bits,
-                        void* best, void* stream) {
-  if (n_in < 0 || n_in >= 8 || nb_bits < 0 || nb_bits > 31) return -1;
-  const long long want = grid_for(2LL << nb_bits);
-  const unsigned int blocks =
-      static_cast<unsigned int>(want < GRIND_MAX_BLOCKS ? want : GRIND_MAX_BLOCKS);
-  grind_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(state), static_cast<const int64_t*>(inputs), n_in,
-      static_cast<uint32_t>((1ull << nb_bits) - 1ull), static_cast<unsigned long long*>(best));
+                        void* scratch, int grid, int chunk, int ordered, void* stream) {
+  if (n_in < 0 || n_in >= 8 || nb_bits < 0 || nb_bits > 31 || grid < 1 ||
+      (ordered && (chunk < 32 || chunk % 32))) {
+    return -1;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t mask = static_cast<uint32_t>((1ull << nb_bits) - 1ull);
+  if (ordered) {
+    grind_kernel<<<static_cast<unsigned int>(grid), THREADS, 0, st>>>(
+        static_cast<const int64_t*>(state), static_cast<const int64_t*>(inputs), n_in, mask,
+        static_cast<unsigned long long*>(scratch), static_cast<unsigned int>(chunk));
+  } else {
+    grind_stride_kernel<<<static_cast<unsigned int>(grid), THREADS, 0, st>>>(
+        static_cast<const int64_t*>(state), static_cast<const int64_t*>(inputs), n_in, mask,
+        static_cast<unsigned long long*>(scratch));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chain of `n` permutations of permute_latency_kernel in `form` (0 to
+// 3): its clock64 cycles in cycles[0]; out receives 32 words.
+extern "C" int zt_permute_latency(int form, int n, void* cycles, void* out, void* stream) {
+  if (form < 0 || form > 3 || n < 0) return -1;
+  permute_latency_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      form, n, static_cast<long long*>(cycles), static_cast<int64_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

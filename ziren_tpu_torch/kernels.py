@@ -36,6 +36,7 @@ import torch
 
 from .core import field as F
 from .core import poseidon2 as hp2
+from .ops import kplans
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -50,9 +51,9 @@ NVCC_FLAGS = (
 # a state over 16 lanes up to this many states, and takes one thread a state
 # above it.
 PERMUTE_LANES_MAX_STATES = 8192
-# K3 takes a level of at most this many digests; ops/tpcs.py splits a tree
-# there.
-LEVELS_MAX_HEIGHT = 256
+# K3 takes a level of at most this many digests (8 blocks of a cluster, 32
+# digests each: ops/kplans.py); ops/tpcs.py splits a tree there.
+LEVELS_MAX_HEIGHT = kplans.K3_HEIGHT_MAX
 
 # launches per entry point since the last reset_launches(), and the same
 # by shape: (n, w) for hash_rows, m for permute, (h, injected heights) for
@@ -113,16 +114,20 @@ def constants_header() -> str:
     """C header of the Poseidon2 round constants as the kernels add them:
     Montgomery form (R = 2^32) minus p, int32 in [-p, 0). Twice: in constant
     memory for indices every thread shares, in global memory for indices
-    that differ by lane. With them, the two size limits above."""
+    that differ by lane. Then the internal diagonal in Montgomery form, in
+    [0, p), and the two size limits above."""
     mont = (hp2.RC.astype(np.uint64) << np.uint64(32)) % np.uint64(F.P_INT)
     bias = mont.astype(np.int64) - F.P_INT
     rows = ",\n".join("  {" + ", ".join(str(int(v)) for v in row) + "}" for row in bias)
     dims = f"[{hp2.RC.shape[0]}][16]"
+    diag = (hp2.INTERNAL_DIAG.astype(np.uint64) << np.uint64(32)) % np.uint64(F.P_INT)
     return (
         "// generated by ziren_tpu_torch/kernels.py from ziren_tpu_torch/core/poseidon2.py\n"
         "#pragma once\n#include <cstdint>\n"
         f"__constant__ int32_t ZT_RC_BIAS{dims} = {{\n{rows}\n}};\n"
         f"__device__ const int32_t ZT_RC_BIAS_G{dims} = {{\n{rows}\n}};\n"
+        "__device__ const int32_t ZT_DIAG_MONT[16] = {"
+        + ", ".join(str(int(v)) for v in diag) + "};\n"
         f"constexpr long long ZT_PERMUTE_LANES_MAX = {PERMUTE_LANES_MAX_STATES};\n"
         f"constexpr int ZT_LEVEL_MAX = {LEVELS_MAX_HEIGHT};\n"
     )
@@ -183,10 +188,15 @@ def load() -> ctypes.CDLL:
         for fn in (lib.zt_permute, lib.zt_permute_lanes, lib.zt_permute_thread):
             fn.argtypes = [vp, vp, ll, vp]
             fn.restype = ctypes.c_int
-        lib.zt_compress_levels.argtypes = [vp, ctypes.POINTER(vp), vp, ctypes.c_int, vp]
-        lib.zt_compress_levels.restype = ctypes.c_int
-        lib.zt_grind.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, vp, vp]
-        lib.zt_grind.restype = ctypes.c_int
+        ci = ctypes.c_int
+        lib.zt_compress_levels.argtypes = [vp, ctypes.POINTER(vp), vp, ci, ci, vp]
+        lib.zt_compress_levels.restype = ci
+        lib.zt_grind.argtypes = [vp, vp, ci, ci, vp, ci, ci, ci, vp]
+        lib.zt_grind.restype = ci
+        lib.zt_grind_occupancy.argtypes = [ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.zt_grind_occupancy.restype = ci
+        lib.zt_permute_latency.argtypes = [ci, ci, vp, vp, vp]
+        lib.zt_permute_latency.restype = ci
         _LIB.append(lib)
         return lib
 
@@ -273,27 +283,50 @@ def compress_levels(digests: torch.Tensor, injected: dict) -> list:
     2 <= h <= LEVELS_MAX_HEIGHT, down to the root, in one launch. `injected`
     maps a level's height h' < h to the (h', 8) digests compressed into it.
     Returns the levels [(h/2, 8), (h/4, 8), ..., (1, 8)] as views of one
-    tensor."""
+    tensor. The cluster's size is ops/kplans.py:k3_blocks(h)."""
+    return compress_levels_split(digests, injected, None)
+
+
+def compress_levels_split(digests: torch.Tensor, injected: dict, blocks) -> list:
+    """compress_levels over a cluster of `blocks` blocks (k3_blocks(h) if
+    None), for holding one split against another; the prover calls
+    compress_levels."""
     _check(digests, "compress_levels", width=8)
     h = digests.shape[0]
-    if h < 2 or h > LEVELS_MAX_HEIGHT or h & (h - 1):
-        raise ValueError(f"compress_levels: bad height {h}")
+    plan = kplans.k3_plan(h, injected, blocks)
     # pointers[k]: the digests injected at height 2^k (csrc: INJ_LEVELS = 8)
     pointers = (ctypes.c_void_p * 8)()
     for hh, inj in injected.items():
         _check(inj, "compress_levels (injected)", width=8)
-        if not 1 <= hh < h or hh & (hh - 1) or inj.shape[0] != hh or inj.device != digests.device:
+        if inj.shape[0] != hh or inj.device != digests.device:
             raise ValueError(f"compress_levels: bad injected level {hh}: {tuple(inj.shape)}")
         pointers[hh.bit_length() - 1] = inj.data_ptr()
     with torch.cuda.device(digests.device):
         out = torch.empty((h - 1, 8), dtype=torch.int64, device=digests.device)
         err = load().zt_compress_levels(
             ctypes.c_void_p(digests.data_ptr()), pointers,
-            ctypes.c_void_p(out.data_ptr()), h, _stream(digests),
+            ctypes.c_void_p(out.data_ptr()), h, plan.blocks, _stream(digests),
         )
         _raise_on(err, "compress_levels")
         _count("compress_levels", (h, tuple(sorted(injected, reverse=True))))
     return split_levels(out, h)
+
+
+_OCCUPANCY: dict = {}
+
+
+def grind_occupancy(device: torch.device) -> tuple:
+    """(blocks of K4 a multiprocessor holds at once, multiprocessors), from
+    the occupancy calculator, read once a device."""
+    key = torch.device(device)
+    key = key.index if key.index is not None else torch.cuda.current_device()
+    if key not in _OCCUPANCY:
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(key):
+            err = load().zt_grind_occupancy(ctypes.byref(per_sm), ctypes.byref(sms))
+        _raise_on(err, "grind (occupancy)")
+        _OCCUPANCY[key] = (per_sm.value, sms.value)
+    return _OCCUPANCY[key]
 
 
 def grind(state: torch.Tensor, inputs: torch.Tensor, nb_bits: int) -> torch.Tensor:
@@ -301,7 +334,10 @@ def grind(state: torch.Tensor, inputs: torch.Tensor, nb_bits: int) -> torch.Tens
     [inputs, w, state[n_in + 1:]] gives a canonical word 7 with nb_bits low
     zero bits; state (16,), inputs (n_in,) with n_in < 8, both int64
     canonical on one device. Returns a 0-d int64 tensor on that device (p
-    if no witness below p exists), reset and written on the current stream."""
+    if no witness below p exists). Its scratch, the best witness and the
+    search's claim counter (which counts from p), is made and filled with p
+    on the current stream before the launch, so a CUDA graph's replay
+    resets it too."""
     for x, what in ((state, "grind (state)"), (inputs, "grind (inputs)")):
         if not x.is_cuda:
             raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
@@ -313,15 +349,42 @@ def grind(state: torch.Tensor, inputs: torch.Tensor, nb_bits: int) -> torch.Tens
     if not 0 <= nb_bits <= 31:
         raise ValueError(f"grind: bad nb_bits {nb_bits}")
     with torch.cuda.device(state.device):
-        best = torch.full((), F.P_INT, dtype=torch.int64, device=state.device)
+        return grind_with(state, inputs, nb_bits,
+                          kplans.k4_plan(nb_bits, grind_occupancy(state.device)))
+
+
+def grind_with(state: torch.Tensor, inputs: torch.Tensor, nb_bits: int, plan) -> torch.Tensor:
+    """grind on another plan's form, grid and chunk, for holding one against
+    another (tools/kernel_bench.py); the prover calls grind."""
+    n_in = inputs.shape[0]
+    with torch.cuda.device(state.device):
+        scratch = torch.full((plan.scratch,), F.P_INT, dtype=torch.int64, device=state.device)
         err = load().zt_grind(
             ctypes.c_void_p(state.data_ptr()),
             ctypes.c_void_p(inputs.data_ptr() if n_in else None),
-            n_in, nb_bits, ctypes.c_void_p(best.data_ptr()), _stream(state),
+            n_in, nb_bits, ctypes.c_void_p(scratch.data_ptr()), plan.grid, plan.chunk,
+            int(plan.ordered), _stream(state),
         )
         _raise_on(err, "grind")
         _count("grind", (n_in, nb_bits))
-    return best
+    return scratch[0]
+
+
+def permute_latency(form: int, n: int, device) -> torch.Tensor:
+    """Launch a chain of n dependent permutations in one warp, in `form`
+    (0: one thread a state; 1: 4 lanes a state; 2: 16 lanes a state with
+    shuffles, K2's for small m; 3: 16 lanes with warp reductions, K3's).
+    Returns a (1,) int64 tensor that receives the chain's
+    clock64 cycles. A probe for tools/kernel_bench.py and chip_smoke.py's
+    latency floor; the prover never calls it."""
+    with torch.cuda.device(device):
+        cycles = torch.zeros(1, dtype=torch.int64, device=device)
+        sink = torch.empty(32, dtype=torch.int64, device=device)
+        err = load().zt_permute_latency(form, n, ctypes.c_void_p(cycles.data_ptr()),
+                                        ctypes.c_void_p(sink.data_ptr()),
+                                        _stream(cycles))
+        _raise_on(err, "permute_latency")
+    return cycles
 
 
 def split_levels(flat: torch.Tensor, h: int) -> list:

@@ -2,25 +2,33 @@
 
     python3 -m ziren_tpu_torch.tools.kernel_bench [--parent DIR] [--sass] [--quick]
 
+Run it from the repository's root (it reads chip_smoke.K3_ALL_SHAPES).
 Builds csrc/poseidon2.cu, prints what ptxas said (registers, spills), holds
 every entry point bit-exact against its plain PyTorch version over regular
-and ragged shapes (K2 in both variants, K3 with and without injected
-levels), then times each at the main path's shapes with CUDA events against
-the bound
+and ragged shapes (K2 in both variants, K3 on every cluster that splits a
+level, with and without injected levels, K4 on the seeded transcripts of
+K4_TRANSCRIPTS), then times each at the main path's shapes with CUDA events
+against the bound
 
     max(permutations * 1960 multiplies / 16.7e12 per s,
         (input + output bytes as int64) / 3.35e12 per s)
 
 where a row of width w is ceil(w / 8) permutations, a state is one and a
-proof-of-work grind (K4, chip_smoke.py phase 3) is witness + 1. K3 has a
-second floor, its chain of dependent levels (k3_chain_floor): log2(h) times
-one permutation's latency, K2's time at m = 1 less a launch's. An
+proof-of-work grind (K4) is witness + 1. K3's levels form a chain, so it
+has a second floor, its latency floor (k3_latency_floor): log2(h) plus its
+injected levels times one permutation's latency in K3's form (16 lanes,
+warp reductions), taken on the card from a chain of dependent permutations
+in one warp (clock64 cycles, and CUDA events over two chain lengths for the
+milliseconds), plus one launch. The same probe gives the latency of the
+other forms (one thread, 4 lanes, 16 lanes with shuffles). K3 is also timed on every cluster size that splits each height. An
 input smaller than the 50 MB L2 is timed over rotating copies that exceed
 it together. `--parent DIR` names an unpacked earlier tree of this
 repository: its kernels are timed in a subprocess before and after this
-tree's (parent, change, change, parent), so the two are compared on one
-card in one run. `--sass` counts the SASS instructions of each kernel by
-opcode with cuobjdump. Prints one JSON object as its last line.
+tree's (parent, change, change, parent) on the same inputs (K1 and K2 at
+their shapes, K3 at every shape of chip_smoke.K3_ALL_SHAPES, K4 at (4, 16)
+on every transcript), so the two are compared on one card in one run.
+`--sass` counts the SASS instructions of each kernel by opcode with
+cuobjdump. Prints one JSON object as its last line.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 
 from .. import kernels
 from ..device import require_cuda
+from ..ops import tchallenger as tch
 from ..ops import tposeidon2 as tp2
 
 P = 2130706433
@@ -49,6 +58,18 @@ HOLD_CYCLES = 30_000_000  # about 15 ms of a spinning kernel ahead of a timing
 
 K1_SHAPES = [(1 << 17, 600), (1 << 17, 83), (1 << 17, 23), (1 << 17, 8), (1 << 17, 1)]
 K2_SIZES = [1, 8, 64, 256, 1 << 10, 1 << 11, 1 << 12, 1 << 13, 1 << 14, 1 << 16]
+# K4 at the main path's (n_in, nb_bits) = (4, 16): the seeds of transcripts
+# (k4_transcript) whose witnesses lie below 2^10 (746, 773, 1,021), around
+# 2^16 (51,092, 71,209, 51,165) and above 131,072 (268,509, 257,046,
+# 183,059), found with the host challenger.
+K4_TRANSCRIPTS = [258, 329, 387, 6, 7, 9, 4, 23, 25]
+K4_MAIN = (4, 16)
+K4_DEV_BITS = (4, 2)  # the dev configs' bits, timed on the first three transcripts
+LATENCY_CHAIN = (64, 1088)  # chain lengths whose time difference gives the ms
+# the forms of kernels.permute_latency, by number: one thread, 4 lanes, 16
+# lanes with shuffles (K2's for small m), 16 lanes with warp reductions (K3's)
+LATENCY_FORMS = ("thread", "quad", "lanes16", "redux")
+K3_FORM = "redux"
 
 
 def bound_ms(perms: int, nbytes: int) -> tuple:
@@ -70,11 +91,59 @@ def k3_bound(h: int, injected: dict) -> tuple:
     return bound_ms(h - 1 + inj, 8 * 8 * (h + inj + h - 1))
 
 
-def k3_chain_floor(h: int, perm_ms: float, launch: float) -> float:
-    """K3's floor however wide it runs: its log2(h) levels each wait for the
-    level below, and each takes at least one permutation's latency, K2's
-    time at m = 1 (`perm_ms`) less a launch's (`launch`)."""
-    return (h.bit_length() - 1) * max(perm_ms - launch, 0.0)
+def k3_latency_floor(h: int, n_injected: int, perm_ms: float, launch: float) -> float:
+    """K3's floor however wide it runs: its log2(h) levels and its injected
+    levels each wait for the last, and each takes at least one permutation's
+    latency (`perm_ms`, K3's form's on the card), after one launch."""
+    return (h.bit_length() - 1 + n_injected) * perm_ms + launch
+
+
+def permute_latency(dev) -> dict:
+    """Per form (LATENCY_FORMS): one permutation's
+    latency in a chain of dependent ones in one warp, as clock64 cycles and
+    as device ms (the event time of two chain lengths, differenced)."""
+    from .. import kernels
+
+    out = {}
+    short, long = LATENCY_CHAIN
+    for form, name in enumerate(LATENCY_FORMS):
+        cycles = kernels.permute_latency(form, long, dev)
+        torch.cuda.synchronize()
+        ms = {n: cuda_ms(lambda _x, n=n: kernels.permute_latency(form, n, dev), [None], 5)
+              for n in (short, long)}
+        out[name] = {"cycles": int(cycles) / long, "ms": (ms[long] - ms[short]) / (long - short)}
+    return out
+
+
+def k4_transcript(seed: int, n_in: int = K4_MAIN[0]):
+    """The host challenger of a seeded transcript: 24 + n_in random words
+    observed, so that n_in wait in its input buffer."""
+    from ..core.challenger import DuplexChallenger
+
+    host = DuplexChallenger()
+    host.observe_slice(np.random.default_rng(seed).integers(0, P, 24 + n_in, dtype=np.uint32))
+    return host
+
+
+def k4_inputs(host, dev) -> tuple:
+    """(state, inputs) of a host challenger, as K4 takes them."""
+    from ..ops.tchallenger import TChallenger
+
+    tc = TChallenger.from_host(host.clone(), dev)
+    return tc.state, tc._concat_buffer().contiguous()
+
+
+def k3_inputs(dev, h: int, heights) -> tuple:
+    """The seeded digests and injected digests K3 is timed on (the parent's
+    snippet makes the same)."""
+    rng = np.random.default_rng(1000 * h + sum(heights))
+    return rand(rng, dev, h, 8), {hh: rand(rng, dev, hh, 8) for hh in heights}
+
+
+def k3_shapes() -> list:
+    from chip_smoke import K3_ALL_SHAPES
+
+    return K3_ALL_SHAPES
 
 
 def launch_ms(dev) -> float:
@@ -124,6 +193,20 @@ def injected_for(rng, dev, h: int, heights) -> dict:
     return {hh: rand(rng, dev, hh, 8) for hh in heights if hh < h}
 
 
+def splits(h: int) -> list:
+    """Every cluster size that can split h digests (ops/kplans.py)."""
+    from ..ops import kplans
+
+    out = []
+    for blocks in (1, 2, 4, 8):
+        try:
+            kplans.k3_plan(h, (), blocks)
+        except ValueError:
+            continue
+        out.append(blocks)
+    return out
+
+
 def check(dev, quick: bool) -> int:
     """Every entry point against its plain version; returns the case count."""
     rng = np.random.default_rng(7)
@@ -152,22 +235,30 @@ def check(dev, quick: bool) -> int:
         same(("permute", m), kernels.permute(x), want)
         for lanes in (False, True):
             same(("permute", m, lanes), kernels.permute_variant(x, lanes), want)
-    for h in [2, 4, 8, 64, 128, 256]:
+    for h in [2, 4, 8, 16, 64, 128, 256]:
         cur = rand(rng, dev, h, 8)
-        for heights in ([], [1], [h // 2], [hh for hh in (1, 2, 16, 64, 128)]):
+        for heights in ([], [1], [h // 2], [hh for hh in (1, 2, 4, 8, 16, 64, 128)]):
             inj = injected_for(rng, dev, h, heights)
-            got = kernels.compress_levels(cur, inj)
             want = tp2.compress_levels_plain(cur, inj)
-            assert len(got) == len(want)
-            for g, wnt in zip(got, want):
-                same(("compress_levels", h, tuple(inj)), g, wnt)
+            for blocks in splits(h):
+                got = kernels.compress_levels_split(cur, inj, blocks)
+                assert len(got) == len(want)
+                for g, wnt in zip(got, want):
+                    same(("compress_levels", h, tuple(inj), blocks), g, wnt)
+    for seed in K4_TRANSCRIPTS[: 3 if quick else None]:
+        host = k4_transcript(seed)
+        state, inputs = k4_inputs(host, dev)
+        got = kernels.grind(state, inputs, K4_MAIN[1])
+        same(("grind", seed), got, tch._grind(state, inputs, K4_MAIN[1], K4_MAIN[0]))
+        assert int(got) == host.grind(K4_MAIN[1]), seed
     return cases
 
 
 def time_kernels(dev, quick: bool) -> dict:
     rng = np.random.default_rng(11)
     out: dict = {"hash_rows": {}, "permute": {}, "permute_thread": {},
-                 "permute_lanes": {}, "compress_levels": {}}
+                 "permute_lanes": {}, "compress_levels": {}, "compress_levels_split": {},
+                 "grind": {}}
     for n, w in K1_SHAPES[: 2 if quick else None]:
         xs = cold_copies(rand(rng, dev, n, w))
         out["hash_rows"][f"{n}x{w}"] = cuda_ms(kernels.hash_rows, xs, 10)
@@ -179,15 +270,67 @@ def time_kernels(dev, quick: bool) -> dict:
         out["permute_lanes"][str(m)] = cuda_ms(
             lambda x: kernels.permute_variant(x, True), xs, 50)
     out["launch_ms"] = launch_ms(dev)
-    for h in (256, 32):
-        xs = cold_copies(rand(rng, dev, h, 8))
-        for heights in ([], [128, 64, 8]):
-            inj = injected_for(rng, dev, h, heights)
-            key = f"{h}+{len(inj)}"
-            out["compress_levels"][key] = cuda_ms(
-                lambda x: kernels.compress_levels(x, inj), xs, 50)
-            out["compress_levels"][key + " plain"] = cuda_ms(
-                lambda x: tp2.compress_levels_plain(x, inj), xs, 3)
+    out["permute_latency"] = permute_latency(dev)
+    for h, heights in k3_shapes():
+        cur, inj = k3_inputs(dev, h, heights)
+        xs = cold_copies(cur)
+        key = f"{h} {list(heights)}"
+        out["compress_levels"][key] = cuda_ms(lambda x: kernels.compress_levels(x, inj), xs, 50)
+        if not heights:
+            for blocks in splits(h):
+                out["compress_levels_split"][f"{h} B={blocks}"] = cuda_ms(
+                    lambda x: kernels.compress_levels_split(x, inj, blocks), xs, 50)
+    for seed in K4_TRANSCRIPTS:
+        state, inputs = k4_inputs(k4_transcript(seed), dev)
+        out["grind"][str(seed)] = cuda_ms(
+            lambda x: kernels.grind(x, inputs, K4_MAIN[1]), [state], 20)
+        if seed in K4_TRANSCRIPTS[:3]:
+            for bits in K4_DEV_BITS:
+                out["grind"][f"{seed} {bits} bits"] = cuda_ms(
+                    lambda x: kernels.grind(x, inputs, bits), [state], 20)
+    out["grind_grid"] = grind_grids(dev)
+    return out
+
+
+def grind_grids(dev) -> dict:
+    """K4 at (4, 16) on other grids (blocks a multiprocessor, up to what the
+    card holds) and chunks, on every transcript: the trade between a smaller
+    first wave and the rate of a full card. Keys "<grid> w=<witness>", and
+    "<grid> mean" over the transcripts."""
+    from ..ops import kplans
+
+    per_sm, sms = kernels.grind_occupancy(dev)
+    out = {"blocks_per_sm": per_sm, "sms": sms}
+    plans = {f"{k}/SM": kplans.K4Plan(k * sms, kplans.K4_THREADS, kplans.K4_CHUNK,
+                                      kplans.K4_SCRATCH)
+             for k in range(1, per_sm + 1)}
+    for chunk in (64, 128):
+        plans[f"chunk {chunk}"] = kplans.K4Plan(kplans.K4_BLOCKS_PER_SM * sms, kplans.K4_THREADS,
+                                                chunk, kplans.K4_SCRATCH)
+    for seed in K4_TRANSCRIPTS:
+        host = k4_transcript(seed)
+        state, inputs = k4_inputs(host, dev)
+        want = host.grind(K4_MAIN[1])  # the host's grind observes its witness
+        for name, plan in plans.items():
+            assert int(kernels.grind_with(state, inputs, K4_MAIN[1], plan)) == want, (name, seed)
+            ms = cuda_ms(lambda x: kernels.grind_with(x, inputs, K4_MAIN[1], plan), [state], 20)
+            out[f"{name} w={want}"] = ms
+            out[f"{name} mean"] = out.get(f"{name} mean", 0.0) + ms / len(K4_TRANSCRIPTS)
+    # the two forms at fewer bits (kplans.K4_STRIDE_MAX_BITS draws the line)
+    for bits in (2, 4, 6, 8, 12):
+        want = -(-(2 << bits) // kplans.K4_THREADS)
+        forms = {"ordered": kplans.K4Plan(min(kplans.K4_BLOCKS_PER_SM * sms, want),
+                                          kplans.K4_THREADS, kplans.K4_CHUNK, kplans.K4_SCRATCH),
+                 "stride": kplans.K4Plan(min(per_sm * sms, want), kplans.K4_THREADS,
+                                         kplans.K4_CHUNK, kplans.K4_SCRATCH, ordered=False)}
+        for seed in K4_TRANSCRIPTS[:3]:
+            host = k4_transcript(seed)
+            state, inputs = k4_inputs(host, dev)
+            want = host.grind(bits)
+            for name, plan in forms.items():
+                assert int(kernels.grind_with(state, inputs, bits, plan)) == want, (name, bits)
+                out[f"{name} {bits} bits w={want}"] = cuda_ms(
+                    lambda x: kernels.grind_with(x, inputs, bits, plan), [state], 20)
     return out
 
 
@@ -210,22 +353,42 @@ def ms(fn, xs, reps):
 def copies(x):
     k = min(max(1, -(-(100 << 20) // max(x.numel() * 8, 1))), 64)
     return [x] + [x.clone() for _ in range(k - 1)]
-out = {"hash_rows": {}, "permute": {}}
-for n, w in json.loads(sys.argv[1]):
-    x = torch.as_tensor(rng.integers(0, 2130706433, (n, w), dtype=np.int64), device=dev)
-    out["hash_rows"][f"{n}x{w}"] = ms(kernels.hash_rows, copies(x), 10)
-for m in json.loads(sys.argv[2]):
-    x = torch.as_tensor(rng.integers(0, 2130706433, (m, 16), dtype=np.int64), device=dev)
-    out["permute"][str(m)] = ms(kernels.permute, copies(x), 50)
+def rand(r, *shape):
+    return torch.as_tensor(r.integers(0, 2130706433, shape, dtype=np.int64), device=dev)
+args = json.loads(sys.argv[1])
+out = {"hash_rows": {}, "permute": {}, "compress_levels": {}, "grind": {}}
+for n, w in args["k1"]:
+    out["hash_rows"][f"{n}x{w}"] = ms(kernels.hash_rows, copies(rand(rng, n, w)), 10)
+for m in args["k2"]:
+    out["permute"][str(m)] = ms(kernels.permute, copies(rand(rng, m, 16)), 50)
+for h, heights in args["k3"]:
+    r = np.random.default_rng(1000 * h + sum(heights))
+    cur = rand(r, h, 8)
+    inj = {hh: rand(r, hh, 8) for hh in heights}
+    out["compress_levels"][f"{h} {list(heights)}"] = ms(
+        lambda x: kernels.compress_levels(x, inj), copies(cur), 50)
+for i, (seed, state, inputs) in enumerate(args["k4"]):
+    st = torch.tensor(state, dtype=torch.int64, device=dev)
+    inp = torch.tensor(inputs, dtype=torch.int64, device=dev)
+    out["grind"][str(seed)] = ms(lambda x: kernels.grind(x, inp, args["bits"]), [st], 20)
+    for bits in (args["dev_bits"] if i < 3 else []):
+        out["grind"][f"{seed} {bits} bits"] = ms(lambda x: kernels.grind(x, inp, bits), [st], 20)
 print(json.dumps(out))
 """
 
 
-def time_parent(parent: str, quick: bool) -> dict:
-    """The same timings of the kernels of the tree unpacked at `parent`."""
+def time_parent(parent: str, quick: bool, dev) -> dict:
+    """The same timings of the kernels of the tree unpacked at `parent`, on
+    the same inputs."""
+    k4 = []
+    for seed in K4_TRANSCRIPTS:
+        state, inputs = k4_inputs(k4_transcript(seed), dev)
+        k4.append((seed, state.tolist(), inputs.tolist()))
+    args = {"k1": K1_SHAPES[: 2 if quick else None], "k2": K2_SIZES,
+            "k3": [(h, list(hh)) for h, hh in k3_shapes()], "k4": k4, "bits": K4_MAIN[1],
+            "dev_bits": list(K4_DEV_BITS)}
     res = subprocess.run(
-        [sys.executable, "-c", _PARENT_SNIPPET,
-         json.dumps(K1_SHAPES[: 2 if quick else None]), json.dumps(K2_SIZES)],
+        [sys.executable, "-c", _PARENT_SNIPPET, json.dumps(args)],
         cwd=parent, capture_output=True, text=True, timeout=900,
     )
     if res.returncode != 0:
@@ -286,23 +449,60 @@ def main() -> None:
     print(f"bit-exact in {result['checked_cases']} cases", flush=True)
     runs = []
     if args.parent:
-        runs.append(("parent", time_parent(args.parent, args.quick)))
+        runs.append(("parent", time_parent(args.parent, args.quick, dev)))
     runs.append(("change", time_kernels(dev, args.quick)))
     runs.append(("change", time_kernels(dev, args.quick)))
     if args.parent:
-        runs.append(("parent", time_parent(args.parent, args.quick)))
+        runs.append(("parent", time_parent(args.parent, args.quick, dev)))
     result["runs"] = runs
     for who, r in runs:
         print(who, json.dumps(r), flush=True)
+    change = [r for who, r in runs if who == "change"][-1]
+    perm_ms = change["permute_latency"][K3_FORM]["ms"]
+    witnesses = {str(s): k4_transcript(s).grind(K4_MAIN[1]) for s in K4_TRANSCRIPTS}
     bounds = {"hash_rows": {f"{n}x{w}": k1_bound(n, w) for n, w in K1_SHAPES},
               "permute": {str(m): k2_bound(m) for m in K2_SIZES},
-              "compress_levels": {f"{h}+0": k3_bound(h, {}) for h in (256, 32)}}
-    change = [r for who, r in runs if who == "change"][-1]
-    bounds["compress_levels_chain_floor"] = {
-        f"{h}": k3_chain_floor(h, change["permute"]["1"], change["launch_ms"]) for h in (256, 32)}
+              "compress_levels": {f"{h} {list(hh)}": k3_bound(h, hh) for h, hh in k3_shapes()},
+              "compress_levels_latency_floor": {
+                  f"{h} {list(hh)}": k3_latency_floor(h, len(hh), perm_ms, change["launch_ms"])
+                  for h, hh in k3_shapes()},
+              "grind": {s: k4_bound(w, K4_MAIN[0]) for s, w in witnesses.items()}}
     result["bound_ms"] = bounds
+    result["k4_witnesses"] = witnesses
     print("bounds", json.dumps(bounds), flush=True)
+    print("K4 witnesses", json.dumps(witnesses), flush=True)
+    summary(runs, bounds)
     print(json.dumps(result), flush=True)
+
+
+def summary(runs: list, bounds: dict) -> None:
+    """K3 and K4, parent and change, mean of each side's runs, beside the
+    bounds: one line a shape."""
+    def mean(who, kernel, key):
+        vals = [r[kernel][key] for w, r in runs if w == who and key in r.get(kernel, {})]
+        return sum(vals) / len(vals) if vals else float("nan")
+
+    for key, bound in bounds["compress_levels"].items():
+        floor = bounds["compress_levels_latency_floor"][key]
+        new = mean("change", "compress_levels", key)
+        print(f"K3 {key}: parent {mean('parent', 'compress_levels', key):.4f} ms, "
+              f"change {new:.4f} ms; operations bound {bound[0]:.5f} ms "
+              f"({100 * bound[0] / new:.2f}%), latency floor {floor:.4f} ms "
+              f"({100 * floor / new:.1f}%)", flush=True)
+    old, new, bnd = [], [], []
+    for key, bound in bounds["grind"].items():
+        old.append(mean("parent", "grind", key))
+        new.append(mean("change", "grind", key))
+        bnd.append(bound[0])
+        print(f"K4 transcript {key}: parent {old[-1]:.4f} ms, change {new[-1]:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({100 * bound[0] / new[-1]:.1f}%)", flush=True)
+    print(f"K4 (4, 16) mean over {len(new)} transcripts: parent {sum(old) / len(old):.4f} ms, "
+          f"change {sum(new) / len(new):.4f} ms, bound {sum(bnd) / len(bnd):.4f} ms", flush=True)
+    for bits in K4_DEV_BITS:
+        keys = [f"{s} {bits} bits" for s in K4_TRANSCRIPTS[:3]]
+        print(f"K4 (4, {bits}) on {len(keys)} transcripts: parent "
+              + ", ".join(f"{mean('parent', 'grind', k):.4f}" for k in keys) + " ms, change "
+              + ", ".join(f"{mean('change', 'grind', k):.4f}" for k in keys) + " ms", flush=True)
 
 
 if __name__ == "__main__":
