@@ -49,9 +49,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      ProverServer at the core config in this process (device left at its
      default, the GPU) and a NetworkProver pointed at it serve
      fibonacci(58218) in shards of 2^16 - 64 cycles: ready, setup, execute
-     (the cycle count of phase 5), three proves in turn and two at once from
-     two threads, each verified by the client's own ProverClient and
-     byte-equal to an in-process machine.mips.prove_program of the same
+     (the cycle count of phase 5), SERVED_IN_TURN proves in turn and two at
+     once from two threads, each verified by the client's own ProverClient
+     and byte-equal to an in-process machine.mips.prove_program of the same
      program (the SDK's setup observes the entry pc and its prove leaves the
      last shard at its own shape, so phase 5's proof, which does neither, is
      another proof); a second setup builds no second key; an unknown program
@@ -71,12 +71,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      client and in the server's prove, the bytes of request and reply, the
      client's verify, the kernels' launches and launch shapes (each among
      those phase 3 held) and peak device memory;
- 10. the fused path: phase 5's program, machine and keys proved three times
-     through ziren_tpu_torch.stark.tfused.prove_shards_fused (one CUDA graph
+ 10. the fused path: phase 5's program, machine and keys proved FUSED_PROVES
+     times through ziren_tpu_torch.stark.tfused.prove_shards_fused (one CUDA graph
      per shard shape, captured on the first shard of a shape and replayed
      for the others); the first proof is of phase 5's records and must be
      byte-equal to phase 5's eager proof, shard for shard, and verify; the
-     two warm proves must make no eager wrapper call, and their launches
+     warm proves must make no eager wrapper call, and their launches
      must equal each graph's capture histogram times its replays. Reports
      the rate of each prove, capture, instantiate and replay seconds, graph
      nodes, the graph's memory pool, peak device memory, launches by kernel
@@ -118,7 +118,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      (capture, instantiate, nodes, pool), replays, peak device memory, and
      the launches and launch shapes of the path. Members that share a card
      cannot be faster than one: what this phase measures is the cost of the
-     gather, the exchanges and the streams.
+     gather, the exchanges and the streams;
+ 13. the drivers (ziren_tpu_torch/tools and ziren_tpu_torch/examples), each
+     through its main in this process with the device at its default, the
+     GPU, its standard output captured, echoed and checked, its launches
+     and launch shapes read after it (K1_DRIVER_SHAPES, K3_DRIVER_SHAPES):
+     device_probe and profile_device on fibonacci(58218) at the core config
+     in shards of 2^16 - 64 cycles (every stage and leg on a line of its
+     own beside the card's name and power limit; both proofs verified, and
+     profile_device's serial legs byte-equal to its machine.prove),
+     bench_prove (its JSON line printed as is), profile_prove, the four
+     precompile examples and network_prover at the dev config, prove_guest
+     on minimal_elf(); then machine.mips.prove_program_checkpointed of
+     fibonacci(58218) on the card, verified, every shard's main commitment
+     and public values those of phase 9's unpadded prove_program. The
+     Groth16 and Plonk wrap drivers are not run here (tens of minutes of
+     host MSM and NTT each).
 
 The script needs one CUDA card. The last two lines are the kernels' JSON
 record and the result line
@@ -246,16 +261,37 @@ K3_PRECOMPILE_SHAPES = [(256, (128, 32, 8)), (256, (128, 64, 16, 8)), (256, (128
 # the gathered caps of 2 or 4 subtree roots are one K3 call of h = 2 or 4).
 MESH_MEMBERS, MESH_ROWS = 4, 1 << 17
 K1_MESH_SHAPES = [(MESH_ROWS // k, w) for k in (2, 4) for w in (600, 108)]
+# The drivers (phase 13) that prove one short shard: bench_prove's
+# fibonacci(2000) at the core config, profile_prove's fibonacci(500) and
+# network_prover's fibonacci(200) at the dev config, and the four
+# precompile examples at the dev config (KeccakSponge's 6,913 columns at 64
+# rows). Recorded on the CPU, where the wrappers' plain versions take the
+# same shapes; the full-width drivers (device_probe, profile_device, the
+# checkpointed prove) launch the main path's and the service path's shapes.
+K1_DRIVER_SHAPES = [
+    (32768, 97), (32768, 52), (8192, 97), (8192, 52), (8192, 12), (4096, 75), (4096, 44),
+    (1024, 20), (512, 46), (256, 90), (256, 64), (256, 46), (128, 692), (128, 348), (128, 177),
+    (128, 116), (128, 40), (128, 14), (64, 6913), (64, 432), (64, 66), (64, 48), (64, 24),
+    (32, 125), (32, 80), (32, 76), (32, 52), (16, 22), (8, 1840), (8, 1431), (8, 1372),
+    (8, 720), (8, 581), (8, 280), (8, 136), (8, 112),
+]
+K3_DRIVER_SHAPES = [(256, (128, 32, 16, 8)), (256, (128, 16, 8)), (256, (128,))]
 K1_ALL_SHAPES = list(dict.fromkeys(K1_SHAPES + K1_RECURSION_SHAPES + K1_SERVICE_SHAPES
                                    + K1_LADDER_SHAPES + K1_CLI_SHAPES + K1_PRECOMPILE_SHAPES
-                                   + K1_MESH_SHAPES))
-K3_ALL_SHAPES = list(dict.fromkeys(K3_SHAPES + K3_CLI_SHAPES + K3_PRECOMPILE_SHAPES))
+                                   + K1_MESH_SHAPES + K1_DRIVER_SHAPES))
+K3_ALL_SHAPES = list(dict.fromkeys(K3_SHAPES + K3_CLI_SHAPES + K3_PRECOMPILE_SHAPES
+                                   + K3_DRIVER_SHAPES))
 FIB_N, SHARD_SIZE, FIB_CYCLES = 58218, (1 << 16) - 64, 349318
 # How many of phase 5's six shard proofs phase 8 compresses: two make a
 # tree of one join over two lifts, in about a fifth of the time all six
 # take, so that the script with phases 9 and 11 stays inside its time limit.
 # K1_RECURSION_SHAPES goes on holding the shapes of the six-shard tree.
 RECURSION_SHARDS = 2
+# Phase 9's requests served in turn (before the two at once) and phase 10's
+# fused proves (the first builds the graphs, the others replay them): one
+# and two, so that the script with phase 13 stays inside its time limit at
+# the slowest pace its host-bound phases have shown (three of each before).
+SERVED_IN_TURN, FUSED_PROVES = 1, 2
 # Phase 11: the rounds of each chain (the reference's sha2-chain and
 # sha3-chain workloads, BASELINE.md): the sha2-chain's published 230, and
 # the sha3-chain's 460 halved for the host trace generation of KeccakSponge.
@@ -629,8 +665,8 @@ def phase_merkle_ntt(dev) -> None:
 
 
 def phase_fused(program, machine, pk, vk, proof, records) -> dict:
-    """Phase 10: the fused path, three proves of phase 5's program. Each
-    is checked against phase 5's eager proof and verified, outside its timed
+    """Phase 10: the fused path, FUSED_PROVES proves of phase 5's program.
+    Each is checked against phase 5's eager proof and verified, outside its timed
     span: execution is deterministic, so the records, and the proof bytes,
     are phase 5's every time."""
     from ziren_tpu_torch import kernels
@@ -643,7 +679,7 @@ def phase_fused(program, machine, pk, vk, proof, records) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     rates, all_stats, proofs = [], [], []
-    for i in range(3):
+    for i in range(FUSED_PROVES):
         if i == 1:  # from here on the proves are warm: replays only
             first = dict(kernels.LAUNCHES)
             graphs = [fs for fs in tfused._MEM.values() if fs.graph is not None]
@@ -656,7 +692,7 @@ def phase_fused(program, machine, pk, vk, proof, records) -> dict:
         torch.cuda.synchronize()
         rates.append(FIB_CYCLES / (time.perf_counter() - t0) / 1e3)
         all_stats.append(stats)
-    warm = launches_of("the fused path's two warm proves")
+    warm = launches_of("the fused path's warm proves")
     wrapper = {k: kernels.LAUNCHES[k] - kernels.REPLAYED[k] for k in kernels.LAUNCHES}
     assert not any(wrapper.values()), f"a warm fused prove called a kernel's wrapper: {wrapper}"
     want: dict = {k: {} for k in kernels.LAUNCHES}
@@ -683,7 +719,7 @@ def phase_fused(program, machine, pk, vk, proof, records) -> dict:
             f"fused prove {i + 1} does not verify"
         verify_s.append(time.perf_counter() - t0)
 
-    print(f"  three proves of fibonacci({FIB_N}), core config, {len(records)} shards: "
+    print(f"  {len(proofs)} proves of fibonacci({FIB_N}), core config, {len(records)} shards: "
           f"prove-only kHz " + ", ".join(f"{r:.3f}" for r in rates)
           + " (phase 5's eager proves beside them); each byte-equal to phase 5's eager "
           "proof, shard for shard, and verify_mips_proof ok in "
@@ -1278,9 +1314,11 @@ def host_output(proc_out, what: str) -> tuple:
     return log.strip().splitlines()[-1], waited
 
 
-def phase_service(registry_proc) -> dict:
+def phase_service(registry_proc) -> tuple:
     """The service path. Returns the kernels' launches: the core-config
-    requests', the CLI guest's and the dev-config ladder's, counted apart."""
+    requests', the CLI guest's and the dev-config ladder's, counted apart;
+    and the in-process prove_program's proof of fibonacci(FIB_N), unpadded,
+    which phase 13 holds the checkpointed prove against."""
     from ziren_tpu_torch import kernels
     from ziren_tpu_torch.executor.asm import fibonacci_program
     from ziren_tpu_torch.machine.mips import prove_program
@@ -1337,7 +1375,7 @@ def phase_service(registry_proc) -> dict:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # the earlier phases' cached keys
         kernels.reset_launches()
-        singles = [request(prover) for _ in range(3)]
+        singles = [request(prover) for _ in range(SERVED_IN_TURN)]
         for proof, _s, _v in singles:
             assert serialize_machine_proof(proof.proof) == want, \
                 "a served proof differs from the in-process prove"
@@ -1377,7 +1415,7 @@ def phase_service(registry_proc) -> dict:
             raise AssertionError("an unknown program id was served")
         assert prover.ready()
 
-    print("  three ProveCore requests in turn, client s: "
+    print(f"  {len(singles)} ProveCore request(s) in turn, client s: "
           + ", ".join(f"{s:.3f}" for _p, s, _v in singles)
           + "; the server's prove s: " + ", ".join(f"{s:.3f}" for s in single_served)
           + "; the client's verify s: " + ", ".join(f"{v:.3f}" for _p, _s, v in singles),
@@ -1386,10 +1424,11 @@ def phase_service(registry_proc) -> dict:
           f"every proof byte-equal to the in-process prove", flush=True)
     print("  two ProveCore requests at once, client s: "
           + ", ".join(f"{s:.3f}" for _p, s, _v in pair)
-          + "; the server's prove s: " + ", ".join(f"{s:.3f}" for s in served_s[3:])
+          + "; the server's prove s: " + ", ".join(f"{s:.3f}" for s in served_s[len(singles):])
           + "; the client's verify s: " + ", ".join(f"{v:.3f}" for _p, _s, v in pair)
           + f"; both proved and verified in {pair_s:.3f} s", flush=True)
-    print(f"  {FIB_CYCLES / 1e3 / (sum(s for _p, s, _v in singles) / 3):.3f} kHz a request in "
+    in_turn = sum(s for _p, s, _v in singles) / len(singles)
+    print(f"  {FIB_CYCLES / 1e3 / in_turn:.3f} kHz a request in "
           f"turn, {2 * FIB_CYCLES / 1e3 / max(s for _p, s, _v in pair):.3f} kHz with two at "
           f"once (client seconds, verify left out)", flush=True)
     print("  a second setup built no second key; an unknown program id came back as an "
@@ -1473,7 +1512,100 @@ def phase_service(registry_proc) -> dict:
           f"wrap_prove {t4 - t3:.2f} s (the host prover, outer_dev_config()), "
           f"verify_wrapped {t5 - t4:.2f} s; Groth16 and Plonk are not run here",
           flush=True)
-    return {k: (launches[k], cli_launches[k], ladder[k]) for k in launches}
+    return {k: (launches[k], cli_launches[k], ladder[k]) for k in launches}, direct
+
+
+def phase_drivers(card: str, unpadded) -> dict:
+    """Phase 13: the drivers of ziren_tpu_torch/tools and
+    ziren_tpu_torch/examples, each through its main in this process (the
+    device left at its default, the GPU), its standard output captured,
+    echoed and checked, the kernels' launches and launch shapes read after
+    each; then prove_program_checkpointed against phase 9's unpadded proof
+    (`unpadded`). Returns the kernels' launches over the phase."""
+    import io
+
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.examples import network_prover, precompiles, prove_guest
+    from ziren_tpu_torch.executor.asm import fibonacci_program
+    from ziren_tpu_torch.machine.mips import prove_program_checkpointed, verify_mips_proof
+    from ziren_tpu_torch.stark.config import core_config
+    from ziren_tpu_torch.stark.serialize import serialize_machine_proof
+    from ziren_tpu_torch.tools import bench_prove, device_probe, profile_device, profile_prove
+
+    total: dict = {}
+    seconds: dict = {}
+
+    def drive(name, fn, *args, **kw):
+        """(fn's result, what it printed); its launches join the phase's."""
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        text = out.getvalue()
+        for line in text.splitlines():
+            print(f"    | {line}", flush=True)
+        for k, v in launches_of(name).items():
+            total[k] = total.get(k, 0) + v
+        return result, text
+
+    # the per-stage and per-leg splits of a core-config prove at full width
+    probe, text = drive("device_probe", device_probe.main, FIB_N, SHARD_SIZE)
+    assert "] verified" in text and "warm shard legs:" in text, "device_probe did not finish"
+    assert probe["cycles"] == FIB_CYCLES
+    assert len(probe["proof"].shard_proofs) == len(unpadded.shard_proofs)
+    for stage, s in probe["stages"].items():
+        print(f"  device_probe stage {stage}: {s:.4f} s ({card})", flush=True)
+    prof, text = drive("profile_device", profile_device.main, FIB_N, SHARD_SIZE,
+                       config="core")
+    assert "\nverified\n" in text and "machine.prove=" in text, "profile_device did not finish"
+    serial, pipelined = prof["proofs"]
+    assert serialize_machine_proof(serial) == serialize_machine_proof(pipelined), \
+        "profile_device: the serial legs' proof differs from machine.prove's"
+    assert verify_mips_proof(prof["machine"], prof["vk"], pipelined,
+                             pc_start=prof["program"].pc_start)
+    for leg, s in prof["legs"].items():
+        print(f"  profile_device leg {leg}: {s:.4f} s ({card})", flush=True)
+
+    _proof, text = drive("bench_prove", bench_prove.main)
+    line = text.strip().splitlines()[-1]
+    print(line, flush=True)
+    bench = json.loads(line)
+    assert bench["config"] == "core" and bench["shards"] == 1 and bench["cycles"] > 0, bench
+    _proof, text = drive("profile_prove", profile_prove.main)
+    assert text.startswith("cycles=") and "function calls" in text, "profile_prove"
+    for which in precompiles.PROGRAMS:
+        _proof, text = drive(f"precompiles {which}", precompiles.main, which)
+        assert text.strip().endswith("verification: ok"), which
+    _proof, text = drive("network_prover", network_prover.main)
+    assert "verified locally - ok" in text, "network_prover"
+    with tempfile.TemporaryDirectory() as tmp:
+        elf = os.path.join(tmp, "fib.elf")
+        with open(elf, "wb") as f:
+            f.write(minimal_elf())
+        _proof, text = drive("prove_guest", prove_guest.main, elf)
+    assert "executed: 70 cycles, exit 0" in text and text.strip().endswith("verified"), text
+
+    # the checkpointed prove, shard for shard against phase 9's prove_program
+    program = fibonacci_program(FIB_N)
+    (machine, _pk, vk, proof, _scout), _text = drive(
+        "prove_program_checkpointed", prove_program_checkpointed, program,
+        config=core_config(), shard_size=SHARD_SIZE)  # device=None: the GPU
+    assert verify_mips_proof(machine, vk, proof, pc_start=program.pc_start)
+    assert len(proof.shard_proofs) == len(unpadded.shard_proofs)
+    for i, (a, b) in enumerate(zip(proof.shard_proofs, unpadded.shard_proofs)):
+        assert np.array_equal(a.commitment.main, b.commitment.main), f"shard {i + 1}: main"
+        assert [int(v) for v in a.public_values] == [int(v) for v in b.public_values], \
+            f"shard {i + 1}: public values"
+    print(f"  prove_program_checkpointed of fibonacci({FIB_N}) on the card: "
+          f"{len(proof.shard_proofs)} shards, verified, every shard's main commitment and "
+          f"public values those of phase 9's prove_program", flush=True)
+    print("  seconds by driver: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()),
+          flush=True)
+    return total
 
 
 def main() -> None:
@@ -1532,12 +1664,13 @@ def run(dev, procs) -> None:
     phase(7, "small recursion shard, port vs host prover", phase_small_recursion, *small)
     recursion_launches = phase(8, "the recursion path", phase_recursion, program, machine,
                                vk, proof)
-    service_launches = phase(9, "the service path", phase_service, procs["ladder"])
+    service_launches, unpadded = phase(9, "the service path", phase_service, procs["ladder"])
     fused_launches = phase(10, "the fused path", phase_fused, program, machine, pk, vk, proof,
                            records)
     precompile_launches = phase(11, "the precompile path", phase_precompiles, procs["groups"])
     mesh_launches = phase(12, "the multi-device path", phase_mesh, dev, program, machine, pk,
                           vk, proof)
+    driver_launches = phase(13, "the drivers", phase_drivers, smi, unpadded)
     print("seconds by phase (phase 2 is the build above): "
           + ", ".join(f"{n}: {s:.1f}" for n, s in sorted(seconds.items()))
           + f"; the whole script {time.perf_counter() - started:.1f}", flush=True)
@@ -1551,7 +1684,7 @@ def run(dev, procs) -> None:
                 "replaces": replaces,
                 "launches": launches[name] + recursion_launches[name]
                 + sum(service_launches[name]) + fused_launches[name]
-                + precompile_launches[name] + mesh_launches[name],
+                + precompile_launches[name] + mesh_launches[name] + driver_launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "shape": str(shape), **({"latency_floor_ms": r["latency_floor"][shape]}

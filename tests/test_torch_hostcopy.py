@@ -12,7 +12,11 @@ or `devices`, a mesh whose members take the shards in turn, as the JAX
 package's `devices` does; under ZIREN_FUSED=1 a `device` prove goes to
 stark/tfused.py, the port of stark/fused.py, as the JAX package's
 StarkMachine.prove goes to fused.py),
-machine/mips.py (prove_program passes `device` on), the recursion entry
+machine/mips.py (prove_program passes `device` on;
+prove_program_checkpointed takes `device` and proves its shards in order on
+the calling thread with the torch shard prover, the workers regenerating
+the next shards' records and traces, or with the numpy prover in the
+workers under "host"), the recursion entry
 points that prove (they take `device` and pass it on to StarkMachine.prove;
 wrap_bn254 names the host prover, the only one its config has),
 recursion/shape_universe.py (its registry cache is keyed by the port's own
@@ -47,7 +51,7 @@ OWN = {"__init__.py", "ops/__init__.py", "stark/__init__.py", "stark/backend.py"
 # a name with a dot is a method: the rest of its class is held
 BY_DESIGN = {
     "stark/machine.py": {"StarkMachine.prove", "prove"},
-    "machine/mips.py": {"prove_program"},
+    "machine/mips.py": {"prove_program", "prove_program_checkpointed"},
     "recursion/machine.py": {"prove_recursion"},
     "recursion/pipeline.py": {"_prove_cached", "lift", "join", "compress", "shrink",
                               "wrap_bn254"},

@@ -49,6 +49,34 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def prover_device(device=None, *, host: bool = True):
+    """A prover's device resolved before any work, as the drivers and
+    machine.mips.prove_program_checkpointed take it: "host" (the numpy
+    prover) as given, or refused where `host` is false (a driver that times
+    the torch prover's legs), anything else as resolve_device has it, so a
+    caller left without a device fails at once where there is no card."""
+    if device != "host":
+        return resolve_device(device)
+    if not host:
+        raise ValueError("the legs are the torch prover's: pass cpu or a CUDA device, "
+                         "or leave --device out for the GPU")
+    return "host"
+
+
+def synchronize(device) -> None:
+    """Wait for the device's work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_name(device) -> str:
+    """What a driver prints of where it proves: the card's name, or the
+    device's own ("cpu", "host")."""
+    if isinstance(device, torch.device) and device.type == "cuda":
+        return f"{device} {torch.cuda.get_device_name(device)}"
+    return str(device)
+
+
 class Member:
     """One member of a mesh: its place on the axis, its device and its
     stream. A stream of None is the caller's current stream (every CPU

@@ -233,17 +233,29 @@ def prove_program(program, stdin=None, config=None, shard_size=None,
 
 
 def prove_program_checkpointed(program, stdin=None, config=None,
-                               shard_size=4096, workers=None):
+                               shard_size=4096, workers=None, device=None):
     """Memory-bounded pipelined prove (reference: utils/prove.rs —
     checkpoint-exec then parallel trace workers): a fast untraced pass
     collects shard-boundary checkpoints, then worker threads regenerate each
-    shard's trace from its checkpoint and prove it, so only ~`workers`
-    shards of trace are ever alive at once."""
+    shard's record and traces from its checkpoint, so only ~`workers`
+    shards of trace are ever alive at once.
+
+    `device` as in StarkMachine.prove: None is the GPU (and raises without
+    one), a torch device runs the torch shard prover (stark/tprover.py)
+    there, the shards proved in order on the calling thread while the
+    workers regenerate the next ones; "host" is the numpy prover, whose
+    workers regenerate and prove each shard."""
     import os
+    from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
+    from ..device import prover_device
+    from ..stark import tprover
     from ..stark.prover import prove_shard
+    from ..stark.shape import _gen_traces
 
+    device = prover_device(device)
+    on_host = device == "host"
     machine = mips_machine(config)
     pk, vk = machine.setup(program, extra_observations=[program.pc_start])
 
@@ -261,20 +273,40 @@ def prove_program_checkpointed(program, stdin=None, config=None,
     base = machine.config.challenger()
     pk.vk.observe_into(base)
 
-    def prove_one(k):
+    def regenerate(k):
         ex = Executor.recover(program, cps[k], shard_size=shard_size)
         rec = ex.run_shard()
         rec.public_values.committed_value_digest = list(digest)
         rec.public_values.exit_code = exit_code
-        return prove_shard(machine, pk, rec, base.clone())
+        return rec
+
+    def prove_one(k):
+        return prove_shard(machine, pk, regenerate(k), base.clone())
+
+    def traced(k):  # the record with its traces, at their natural heights
+        rec = regenerate(k)
+        rec._fixed_traces = _gen_traces(machine, rec)
+        return rec
 
     from ..stark.proof import MachineProof
 
     n = len(cps)
     workers = workers or min(n, os.cpu_count() or 4)
-    if n == 1:
+    if on_host and n == 1:
         proofs = [prove_one(0)]
-    else:
+    elif on_host:
         with ThreadPoolExecutor(max_workers=workers) as pool:
             proofs = list(pool.map(prove_one, range(n)))
+    else:
+        # one caller of the device prover: K4's scratch, the transcript and
+        # the device caches are not written for concurrent callers
+        proofs = []
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            ahead = deque(pool.submit(traced, k) for k in range(min(workers, n)))
+            for k in range(n):
+                rec = ahead.popleft().result()
+                if k + len(ahead) + 1 < n:
+                    ahead.append(pool.submit(traced, k + len(ahead) + 1))
+                proofs.append(tprover.prove_shard(machine, pk, rec, base.clone(),
+                                                  device))
     return machine, pk, vk, MachineProof(proofs), scout

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core import field as F
+from ..device import synchronize
 from .pcs import FriProof, QueryProof, TwoAdicFriPcs
 from .proof import (
     AirOpenedValues,
@@ -358,6 +359,13 @@ def finish(pk, d, got) -> ShardProof:
         d["public_values"], [np.asarray(g, np.uint32) for g in tree["gsums"]],
         has_prep=meta["has_prep"],
     )
+
+
+def fetch(dispatches, device) -> list:
+    """Every dispatched shard's fetch vector on the host, after one wait for
+    the device (the legs that stark/machine.py's prove runs as one)."""
+    synchronize(device)
+    return [d["fetch"].cpu().numpy() for d in dispatches]
 
 
 def prove_shard(machine, pk, record, challenger, device) -> ShardProof:
