@@ -25,8 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. the main path: fibonacci(58218) at the core config (log_blowup 1,
      84 queries, 16 PoW bits), shards of 2^16 - 64 cycles, proved through
      ziren_tpu_torch.stark.machine.prove and checked by verify_mips_proof,
-     with the kernels' launch counts and launch shapes from that run, then
-     proved twice more for the spread of the rate;
+     with the kernels' launch counts and launch shapes from that run (one
+     prove: the two more that showed the rate's spread went for the time
+     of phase 14);
   6. ops/tmerkle.py and ops/tntt.py on the card against the host's
      core/merkle.py and core/ntt.py, bit-exact: leaf hashes and root of a
      seeded (2^17, 83) matrix, a fold of digest levels, a coset LDE;
@@ -67,10 +68,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      script (ladder_registry: host trace generation gives the shard's shape,
      no proof is made), into the cache file that compressed_prove loads;
      phase 9 checks that the file was there first and that the root the
-     proof carries is the file's. Reports every request's seconds at the
-     client and in the server's prove, the bytes of request and reply, the
-     client's verify, the kernels' launches and launch shapes (each among
-     those phase 3 held) and peak device memory;
+     proof carries is the file's. Then the composition through the SDK
+     (ladder_composition): a guest that claims that compressed proof twice
+     (ladder_claim_guest; its registry enumerated by the same process, from
+     the sub-guest's key and execution) proved with
+     compressed_prove(pk, deferred=[root, root]) on the card: one lift, two
+     deferred leaves, a deferred join, the attach; the root is complete and
+     verify_compressed accepts it; one sub-proof for the two claims is
+     refused before any recursion proof. Reports every request's seconds at
+     the client and in the server's prove, the bytes of request and reply,
+     the client's verify, each composition node's seconds and split, the
+     kernels' launches and launch shapes (each among those phase 3 held)
+     and peak device memory;
  10. the fused path: phase 5's program, machine and keys proved FUSED_PROVES
      times through ziren_tpu_torch.stark.tfused.prove_shards_fused (one CUDA graph
      per shard shape, captured on the first shard of a shape and replayed
@@ -99,8 +108,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      shard the trace-generation wait and the dispatch or replay seconds,
      fetch, assembly, host trace-generation seconds by chip, peak device
      memory, launches by kernel and shape, each graph's nodes, capture,
-     instantiate, pool bytes and busy share, and KeccakSponge's share of
-     its shard's eager launches;
+     instantiate and pool bytes (phase 10 measures a replay's busy share;
+     the chains' went for the time of phase 14), and KeccakSponge's share
+     of its shard's eager launches;
  12. the multi-device path (ziren_tpu_torch/device.py's Mesh, stark/ici.py,
      stark/sharded.py): a mesh of MESH_MEMBERS members, each a device and a
      stream of its own, all on the one card (one member per card when the
@@ -129,11 +139,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      profile_device's serial legs byte-equal to its machine.prove),
      bench_prove (its JSON line printed as is), profile_prove, the four
      precompile examples and network_prover at the dev config, prove_guest
-     on minimal_elf(); then machine.mips.prove_program_checkpointed of
-     fibonacci(58218) on the card, verified, every shard's main commitment
-     and public values those of phase 9's unpadded prove_program. The
+     on minimal_elf(); then machine.mips.prove_program_checkpointed of the
+     first CHECKPOINTED_SHARDS shards of fibonacci(58218) on the card, each
+     shard verified (verify_shard: a prefix does not balance the execution's
+     global sum), its main commitment and public values those of phase 9's
+     unpadded prove_program. The
      Groth16 and Plonk wrap drivers are not run here (tens of minutes of
-     host MSM and NTT each).
+     host MSM and NTT each);
+ 14. the composition path (recursion/deferred.py) at the core config on the
+     card, through compose(): fibonacci(COMPOSITION_N) proved and compressed
+     to a complete root, verified; a guest that claims it with
+     VERIFY_ZKM_PROOF (executor/asm.py:deferred_claim_program) proved,
+     verified, and compressed seeded with the fold of its claim, which
+     verify_compressed refuses alone (is_complete = 0); the deferred chain
+     (one leaf, public values [0]*8 + the fold); the attach, complete,
+     which verify_compressed accepts. Each compress is under its own tree's
+     registry (compress_bench.tree_registry), as phase 8's. Reports each
+     node's seconds and split (compress_bench.instrument), the machines'
+     chips and heights, peak device memory, and the launches and launch
+     shapes (K1_COMPOSITION_SHAPES, K3_COMPOSITION_SHAPES).
 
 The script needs one CUDA card. The last two lines are the kernels' JSON
 record and the result line
@@ -276,11 +300,26 @@ K1_DRIVER_SHAPES = [
     (8, 720), (8, 581), (8, 280), (8, 136), (8, 112),
 ]
 K3_DRIVER_SHAPES = [(256, (128, 32, 16, 8)), (256, (128, 16, 8)), (256, (128,))]
+# The composition path: phase 14's lifts, deferred leaf and attach at the
+# core config (the attach's machine: RecFriFold at 2^19, RecPoseidon2 at 2^17),
+# and phase 9's composition leg at the dev config (the claim guest's shard,
+# its lift, two leaves, a join, the attach). Recorded on the CPU from the
+# plain versions' inputs, and the same in one run on the card with the check
+# put off; launches_of names any shape left out.
+K1_COMPOSITION_SHAPES = [
+    (262144, 21), (262144, 20), (262144, 7), (131072, 413), (131072, 176), (131072, 90),
+    (65536, 56), (65536, 25), (65536, 15), (32768, 44), (32768, 26), (16384, 3), (8192, 401),
+    (8192, 144), (8192, 77), (1024, 1), (512, 76), (256, 122), (256, 68), (128, 57), (128, 56),
+    (64, 156), (64, 145), (64, 112), (64, 80), (64, 44), (32, 152), (32, 40), (32, 19),
+    (32, 16), (8, 475), (8, 224), (8, 80),
+]
+K3_COMPOSITION_SHAPES = [(256, (64, 32, 8)), (256, (32, 8))]
 K1_ALL_SHAPES = list(dict.fromkeys(K1_SHAPES + K1_RECURSION_SHAPES + K1_SERVICE_SHAPES
                                    + K1_LADDER_SHAPES + K1_CLI_SHAPES + K1_PRECOMPILE_SHAPES
-                                   + K1_MESH_SHAPES + K1_DRIVER_SHAPES))
+                                   + K1_MESH_SHAPES + K1_DRIVER_SHAPES
+                                   + K1_COMPOSITION_SHAPES))
 K3_ALL_SHAPES = list(dict.fromkeys(K3_SHAPES + K3_CLI_SHAPES + K3_PRECOMPILE_SHAPES
-                                   + K3_DRIVER_SHAPES))
+                                   + K3_DRIVER_SHAPES + K3_COMPOSITION_SHAPES))
 FIB_N, SHARD_SIZE, FIB_CYCLES = 58218, (1 << 16) - 64, 349318
 # How many of phase 5's six shard proofs phase 8 compresses: two make a
 # tree of one join over two lifts, in about a fifth of the time all six
@@ -292,10 +331,16 @@ RECURSION_SHARDS = 2
 # and two, so that the script with phase 13 stays inside its time limit at
 # the slowest pace its host-bound phases have shown (three of each before).
 SERVED_IN_TURN, FUSED_PROVES = 1, 2
+# Phase 13's checkpointed prove: the first two of fibonacci(58218)'s six
+# shards (a cut of depth, six before), for the time of phase 14.
+CHECKPOINTED_SHARDS = 2
 # Phase 11: the rounds of each chain (the reference's sha2-chain and
 # sha3-chain workloads, BASELINE.md): the sha2-chain's published 230, and
 # the sha3-chain's 460 halved for the host trace generation of KeccakSponge.
 CHAIN_N = {"sha256": 230, "keccak": 230}
+# Phase 14: the sub-guest whose compressed proof the claim guest claims,
+# fibonacci(2000), one shard of 12,010 cycles (bench_prove's workload).
+COMPOSITION_N = 2000
 
 
 def minimal_elf(n: int = 10, vaddr: int = 0x10000) -> bytes:
@@ -621,15 +666,6 @@ def phase_main_path(dev) -> tuple:
           flush=True)
     print(f"  peak device memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB)",
           flush=True)
-    rates = [cycles / prove_s / 1e3]
-    for _ in range(2):  # the spread of the rate, on the same card
-        _ex2, again = execute_sharded(program, shard_size)
-        t0 = time.perf_counter()
-        prove(machine, pk, again, fix_shapes=True)
-        torch.cuda.synchronize()
-        rates.append(cycles / (time.perf_counter() - t0) / 1e3)
-    print("  prove-only kHz of three proves: "
-          + ", ".join(f"{r:.3f}" for r in rates), flush=True)
     return launches, (program, machine, pk, vk, proof, records, grind_shape)
 
 
@@ -721,7 +757,7 @@ def phase_fused(program, machine, pk, vk, proof, records) -> dict:
 
     print(f"  {len(proofs)} proves of fibonacci({FIB_N}), core config, {len(records)} shards: "
           f"prove-only kHz " + ", ".join(f"{r:.3f}" for r in rates)
-          + " (phase 5's eager proves beside them); each byte-equal to phase 5's eager "
+          + " (phase 5's eager prove beside them); each byte-equal to phase 5's eager "
           "proof, shard for shard, and verify_mips_proof ok in "
           + ", ".join(f"{s:.3f}" for s in verify_s) + " s", flush=True)
     for b in all_stats[0]["built"]:
@@ -1021,10 +1057,6 @@ def phase_precompiles(host_proc) -> dict:
         print(f"    graphs of this chain still held: {len(built)} of the {len(tfused._MEM)} "
               f"held (_MEM_MAX {tfused._MEM_MAX}); replays: {[fs.replays for fs in built]}",
               flush=True)
-        t0 = time.perf_counter()
-        for fs in built:
-            busy_share(fs)
-        print(f"    (the busy shares took {time.perf_counter() - t0:.1f} s)", flush=True)
         if name == "keccak":
             t0 = time.perf_counter()
             fs = next(fs for fs in built if "KeccakSponge" in [c.name for c in fs.chips])
@@ -1236,13 +1268,171 @@ def phase_recursion(program, machine, vk, proof) -> dict:
     return launches
 
 
+def compose(config, device=None) -> dict:
+    """The composition path (recursion/deferred.py) at `config`: a
+    sub-guest, fibonacci(COMPOSITION_N), proved and compressed to a complete
+    root; a main guest (executor/asm.py:deferred_claim_program) that claims
+    that root with VERIFY_ZKM_PROOF and commits the fold of its claim, proved
+    and compressed with the fold as its reconstruct digest, which alone is
+    no complete root; the deferred chain of the one claim (one leaf); and
+    the root merge (attach_deferred), which verify_compressed accepts. Each
+    compress is under the registry of its own tree (compress_bench's
+    tree_registry). `device` is where every proof is made: None is the GPU.
+    Returns the attached root's digest, the two guests' shard shapes and
+    the seconds of each step."""
+    from ziren_tpu_torch.executor.asm import deferred_claim_program, fibonacci_program
+    from ziren_tpu_torch.machine.mips import execute_sharded, mips_machine, verify_mips_proof
+    from ziren_tpu_torch.recursion import deferred as D
+    from ziren_tpu_torch.recursion import mips_pipeline as mp
+    from ziren_tpu_torch.stark.verifier import VerificationError
+    from ziren_tpu_torch.tools import compress_bench as cb
+
+    machine = mips_machine(config)
+    seconds, shapes = {}, {}
+
+    def proved(name, program):
+        t0 = time.perf_counter()
+        pk, vk = machine.setup(program)
+        _ex, records = execute_sharded(program, SHARD_SIZE)
+        proof = machine.prove(pk, records, device=device)
+        seconds[name + " prove"] = time.perf_counter() - t0
+        assert verify_mips_proof(machine, vk, proof, pc_start=program.pc_start)
+        shapes[name] = [(c, v.log_degree) for sp in proof.shard_proofs
+                        for c, v in zip(sp.chip_names, sp.opened_values)]
+        return vk, records, proof
+
+    def compressed(name, vk, proof, reconstruct=None):
+        t0 = time.perf_counter()
+        registry = cb.tree_registry(machine, vk, proof.shard_proofs, config)
+        t1 = time.perf_counter()
+        side = mp.compress(machine, vk, proof, config=config, reconstruct_digest=reconstruct,
+                           registry=registry, device=device)
+        seconds[name + " registry"] = t1 - t0
+        seconds[name + " compress"] = time.perf_counter() - t1
+        return side, registry
+
+    # 1. the sub-proof: one shard, one lift, a complete root
+    sub = fibonacci_program(COMPOSITION_N)
+    sub_vk, _records, sub_proof = proved("sub-guest", sub)
+    sub_side, sub_registry = compressed("sub-guest", sub_vk, sub_proof)
+    sub_rpv = [int(v) for v in sub_side[2].public_values]
+    assert sub_rpv[mp.RPV_IS_COMPLETE] == 1
+    mp.verify_compressed(machine, sub_vk, *sub_side, pc_start=sub.pc_start,
+                         registry=sub_registry)
+
+    # 2. the main guest claims it and commits the fold; its own tree is seeded
+    # with that fold and does not complete alone
+    vkey = D.claim_vk_digest(sub_vk)
+    assert vkey == D.claim_vk_digest_from_rpv(sub_rpv)
+    pv32 = sub_rpv[mp.RPV_DIGEST : mp.RPV_DIGEST + 32]
+    folded = D.fold_claims([(vkey, pv32)])
+    words = D.pv_digest_bytes_to_words(pv32)
+    main = deferred_claim_program(vkey, words, folded)
+    main_vk, records, main_proof = proved("claim guest", main)
+    assert records[0].deferred_proof_claims == [(tuple(vkey), tuple(words))]
+    assert list(records[-1].public_values.deferred_proofs_digest) == folded
+    core, main_registry = compressed("claim guest", main_vk, main_proof, reconstruct=folded)
+    core_rpv = [int(v) for v in core[2].public_values]
+    assert core_rpv[mp.RPV_IS_COMPLETE] == 0
+    assert core_rpv[mp.RPV_START_RECON : mp.RPV_START_RECON + 8] == folded
+    try:
+        mp.verify_compressed(machine, main_vk, *core, pc_start=main.pc_start)
+    except VerificationError as e:
+        assert "incomplete" in str(e), e
+    else:
+        raise AssertionError("verify_compressed took the claim guest's root alone")
+
+    # 3. the deferred chain of the one claim: one leaf
+    t0 = time.perf_counter()
+    chain = D.deferred_chain([sub_side], config=config, device=device)
+    seconds["deferred_chain"] = time.perf_counter() - t0
+    assert [int(v) for v in chain[2].public_values] == [0] * 8 + folded
+
+    # 4. the root merge completes it
+    t0 = time.perf_counter()
+    root = D.attach_deferred(core, chain, config=config, device=device)
+    seconds["attach_deferred"] = time.perf_counter() - t0
+    root_rpv = [int(v) for v in root[2].public_values]
+    assert root_rpv[mp.RPV_IS_COMPLETE] == 1
+    digest = mp.verify_compressed(machine, main_vk, *root, pc_start=main.pc_start,
+                                  vk_root=main_registry.root)
+    assert isinstance(digest, bytes) and len(digest) == 32
+    return {"digest": digest, "shapes": shapes, "seconds": seconds}
+
+
+def phase_composition(card: str) -> dict:
+    """Phase 14: compose() at the core config on the card, every node timed
+    and split by compress_bench.instrument. Returns the kernels' launches."""
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.stark.config import core_config
+    from ziren_tpu_torch.tools import compress_bench as cb
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the earlier phases' cached keys
+    kernels.reset_launches()
+    with cb.instrument() as times:
+        out = compose(core_config())  # device=None: the GPU
+        torch.cuda.synchronize()
+    launches = launches_of("the composition path")
+    peak = torch.cuda.max_memory_allocated()
+    assert len(times["lift"]) == 2 and "join" not in times
+    assert [len(times.get(k, [])) for k in cb.DEFERRED_NODES] == [1, 0, 1]
+
+    print(f"  {card}; core config; the sub-guest fibonacci({COMPOSITION_N}) and the claim "
+          f"guest, one shard each: " + ", ".join(f"{k} {len(v)} chips" for k, v in
+                                                 out["shapes"].items()), flush=True)
+    for name, shape in out["shapes"].items():
+        print(f"  {name}'s shard (chip, log2 height): {shape}", flush=True)
+    print("  seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in out["seconds"].items()),
+          flush=True)
+    print("  the sub-guest's root complete and verified (verify_compressed under its tree's "
+          "registry); the claim guest's root is_complete = 0, refused alone; the chain's "
+          "public values [0]*8 + the fold; the attached root complete, verify_compressed "
+          f"returned the digest {out['digest'].hex()}", flush=True)
+    for kind, what in (("lift", "lifts (the sub-guest's, the claim guest's)"),
+                       ("deferred_leaf", "the deferred leaf"),
+                       ("attach_deferred", "the attach")):
+        print(f"  {what} s, total (split): " + cb.summary(times[kind]), flush=True)
+        print(f"  {what}: machine (chip, log2 height, width, preprocessed width): "
+              + "; ".join(str(e["machine"]) for e in times[kind]), flush=True)
+    print(f"  {len(times['enum_lift'])} lifts traced without proving (the registries and "
+          f"compress's membership checks): "
+          + ", ".join(f"{e['total_s']:.2f}" for e in times["enum_lift"]) + " s", flush=True)
+    print(f"  peak device memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB); {held} "
+          f"bytes of them were held when the phase began (the earlier phases' keys)",
+          flush=True)
+    return launches
+
+
+def ladder_claim_guest(sub_pk):
+    """The guest of phase 9's composition leg: it claims the compressed
+    proof of the ladder's fibonacci(30) twice (tools/claim_programs.py),
+    each claim the sub-guest's vk digest and the committed-value digest of
+    its execution, and commits their fold. The
+    claim values, and so this guest's program and every lift vk of its
+    registry, come from the sub-guest's key and execution: no proof."""
+    from ziren_tpu_torch.executor import asm
+    from ziren_tpu_torch.machine.mips import execute
+    from ziren_tpu_torch.recursion import deferred as D
+    from ziren_tpu_torch.tools.claim_programs import claims_program, digest_bytes
+
+    _ex, record = execute(sub_pk.program)
+    words = [int(w) for w in record.public_values.committed_value_digest]
+    claim = (D.claim_vk_digest(sub_pk.vk), words)
+    folded = D.fold_claims([(claim[0], digest_bytes(words))] * 2)
+    return claims_program(asm, [claim] * 2, folded)
+
+
 def ladder_registry() -> None:
-    """Enumerate the dev-config ladder's lift + join registry on the host
-    and write it where ProverClient.compressed_prove in phase 9 loads it
-    (recursion/shape_universe.py:_registry_cache_path). The shape of
-    fibonacci(30)'s shard comes from host trace generation, as the SDK's
-    prove orders and sizes it; nothing is proved. Prints the file's path.
-    The script runs this in a process of its own, which sees no card."""
+    """Enumerate the dev-config ladder's lift + join registries on the host
+    and write them where ProverClient.compressed_prove in phase 9 loads them
+    (recursion/shape_universe.py:_registry_cache_path): fibonacci(30)'s, then
+    that of the guest that claims its compressed proof twice
+    (ladder_claim_guest). A shard's shape comes from host trace generation,
+    as the SDK's prove orders and sizes it; nothing is proved. Prints the
+    two files' paths as a JSON list. The script runs this in a process of
+    its own, which sees no card."""
     from ziren_tpu_torch.executor.asm import fibonacci_program
     from ziren_tpu_torch.machine.mips import execute_sharded
     from ziren_tpu_torch.recursion import shape_universe as su
@@ -1251,18 +1441,25 @@ def ladder_registry() -> None:
     from ziren_tpu_torch.stark.shape import _gen_traces
 
     client = ProverClient(config="dev", device="cpu")
+
+    def enumerate_registry(pk):
+        _ex, records = execute_sharded(pk.program, ZirenCoreOpts.auto().shard_size)
+        shapes = set()
+        for record in records:
+            traces = sorted(_gen_traces(pk.machine, record), key=lambda t: -t[1].shape[0])
+            shapes.add(tuple((c.name, t.shape[0].bit_length() - 1) for c, t in traces))
+        shapes = list(shapes)
+        su.build_full_registry(pk.machine, pk.vk, shapes, config=client._config)
+        path = su._registry_cache_path(pk.machine, pk.vk, shapes, client._config,
+                                       su.FIXED_REGISTRY_HEIGHT)
+        assert os.path.exists(path), path
+        return path
+
     pk, _vk = client.setup(fibonacci_program(30))
-    _ex, records = execute_sharded(pk.program, ZirenCoreOpts.auto().shard_size)
-    shapes = set()
-    for record in records:
-        traces = sorted(_gen_traces(pk.machine, record), key=lambda t: -t[1].shape[0])
-        shapes.add(tuple((c.name, t.shape[0].bit_length() - 1) for c, t in traces))
-    shapes = list(shapes)
-    su.build_full_registry(pk.machine, pk.vk, shapes, config=client._config)
-    path = su._registry_cache_path(pk.machine, pk.vk, shapes, client._config,
-                                   su.FIXED_REGISTRY_HEIGHT)
-    assert os.path.exists(path), path
-    print(path, flush=True)
+    paths = [enumerate_registry(pk)]
+    guest_pk, _vk = client.setup(ladder_claim_guest(pk))
+    paths.append(enumerate_registry(guest_pk))
+    print(json.dumps(paths), flush=True)
 
 
 def group_host_proofs() -> None:
@@ -1476,8 +1673,9 @@ def phase_service(registry_proc) -> tuple:
 
     # the upper rungs of the ladder, dev config, one shard; the registry
     # comes from the process started with the script
-    registry_file, waited_s = host_output(registry_proc, "the ladder's registry process")
-    assert os.path.exists(registry_file), registry_file
+    line, waited_s = host_output(registry_proc, "the ladder's registry process")
+    registry_file, guest_registry_file = json.loads(line)
+    assert os.path.exists(registry_file) and os.path.exists(guest_registry_file), line
     kernels.reset_launches()
     small = fibonacci_program(30)
     spk, svk = dev.setup(small)
@@ -1487,8 +1685,10 @@ def phase_service(registry_proc) -> tuple:
     from ziren_tpu_torch.recursion import mips_pipeline as mp
     from ziren_tpu_torch.recursion.vk_registry import VkRegistry
 
-    cached = VkRegistry(list(np.fromfile(registry_file, dtype=np.uint32).reshape(-1, 8)),
-                        height=64)
+    def cached_registry(path):
+        return VkRegistry(list(np.fromfile(path, dtype=np.uint32).reshape(-1, 8)), height=64)
+
+    cached = cached_registry(registry_file)
     rpv = [int(v) for v in compressed[2].public_values]
     assert rpv[mp.RPV_VK_ROOT : mp.RPV_VK_ROOT + 8] == [int(v) for v in cached.root], \
         "compressed_prove did not use the registry enumerated beforehand"
@@ -1512,7 +1712,63 @@ def phase_service(registry_proc) -> tuple:
           f"wrap_prove {t4 - t3:.2f} s (the host prover, outer_dev_config()), "
           f"verify_wrapped {t5 - t4:.2f} s; Groth16 and Plonk are not run here",
           flush=True)
-    return {k: (launches[k], cli_launches[k], ladder[k]) for k in launches}, direct
+    composition = ladder_composition(dev, spk, compressed, cached_registry(guest_registry_file))
+    return {k: (launches[k], cli_launches[k], ladder[k], composition[k])
+            for k in launches}, direct
+
+
+def ladder_composition(dev, sub_pk, sub, registry) -> dict:
+    """Phase 9's composition leg, through the SDK at the dev config on the
+    card: ProverClient.compressed_prove of the guest that claims the
+    ladder's compressed proof `sub` twice (ladder_claim_guest), with
+    deferred=[sub, sub]: its core prove and one lift under `registry` (the
+    registry process's enumeration, which compressed_prove loads from its
+    file), two deferred leaves, a deferred join and the attach; the root is
+    complete and verify_compressed accepts it. Then one refusal: one
+    sub-proof for the two claims raises VerificationError after the core
+    prove and before any recursion proof. Returns the kernels' launches of
+    the composed prove."""
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.recursion import mips_pipeline as mp
+    from ziren_tpu_torch.stark.verifier import VerificationError
+    from ziren_tpu_torch.tools import compress_bench as cb
+
+    guest_pk, guest_vk = dev.setup(ladder_claim_guest(sub_pk))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with cb.instrument() as times:
+        t0 = time.perf_counter()
+        root = dev.compressed_prove(guest_pk, deferred=[sub, sub])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = launches_of("the SDK's composition (compressed_prove, two sub-proofs)")
+    root_rpv = [int(v) for v in root[2].public_values]
+    assert root_rpv[mp.RPV_IS_COMPLETE] == 1
+    assert root_rpv[mp.RPV_VK_ROOT : mp.RPV_VK_ROOT + 8] == [int(v) for v in registry.root], \
+        "compressed_prove did not use the claim guest's registry enumerated beforehand"
+    digest = dev.verify_compressed(root, guest_vk)
+    assert isinstance(digest, bytes) and len(digest) == 32
+    nodes = ("lift",) + cb.DEFERRED_NODES
+    assert [len(times.get(k, [])) for k in nodes] == [1, 2, 1, 1], \
+        {k: len(v) for k, v in times.items()}
+    t2 = time.perf_counter()
+    with cb.instrument() as refused:
+        try:
+            dev.compressed_prove(guest_pk, deferred=[sub])
+        except VerificationError as e:
+            assert "2 proof claims but 1" in str(e), e
+        else:
+            raise AssertionError("compressed_prove took one sub-proof for two claims")
+    assert not refused, "recursion work before the refusal"
+    refusal_s = time.perf_counter() - t2
+    print(f"  composition through the SDK (dev config): a guest that claims that compressed "
+          f"proof twice, compressed_prove(pk, deferred=[root, root]) {t1 - t0:.2f} s, the "
+          f"root complete under the claim guest's registry from its file, verify_compressed "
+          f"ok; one sub-proof for two claims refused before any recursion proof "
+          f"({refusal_s:.2f} s, its core prove)", flush=True)
+    for kind in nodes:
+        print(f"  {kind} s, total (split): " + cb.summary(times[kind]), flush=True)
+    return launches
 
 
 def phase_drivers(card: str, unpadded) -> dict:
@@ -1528,6 +1784,7 @@ def phase_drivers(card: str, unpadded) -> dict:
     from ziren_tpu_torch.examples import network_prover, precompiles, prove_guest
     from ziren_tpu_torch.executor.asm import fibonacci_program
     from ziren_tpu_torch.machine.mips import prove_program_checkpointed, verify_mips_proof
+    from ziren_tpu_torch.stark.verifier import verify_shard
     from ziren_tpu_torch.stark.config import core_config
     from ziren_tpu_torch.stark.serialize import serialize_machine_proof
     from ziren_tpu_torch.tools import bench_prove, device_probe, profile_device, profile_prove
@@ -1589,20 +1846,25 @@ def phase_drivers(card: str, unpadded) -> dict:
         _proof, text = drive("prove_guest", prove_guest.main, elf)
     assert "executed: 70 cycles, exit 0" in text and text.strip().endswith("verified"), text
 
-    # the checkpointed prove, shard for shard against phase 9's prove_program
+    # the checkpointed prove of a prefix, shard for shard against phase 9's
+    # prove_program
     program = fibonacci_program(FIB_N)
     (machine, _pk, vk, proof, _scout), _text = drive(
         "prove_program_checkpointed", prove_program_checkpointed, program,
-        config=core_config(), shard_size=SHARD_SIZE)  # device=None: the GPU
-    assert verify_mips_proof(machine, vk, proof, pc_start=program.pc_start)
-    assert len(proof.shard_proofs) == len(unpadded.shard_proofs)
+        config=core_config(), shard_size=SHARD_SIZE,
+        shards=CHECKPOINTED_SHARDS)  # device=None: the GPU
+    assert len(proof.shard_proofs) == CHECKPOINTED_SHARDS
+    base = machine.config.challenger()
+    vk.observe_into(base)
     for i, (a, b) in enumerate(zip(proof.shard_proofs, unpadded.shard_proofs)):
+        verify_shard(machine, vk, a, base.clone())
         assert np.array_equal(a.commitment.main, b.commitment.main), f"shard {i + 1}: main"
         assert [int(v) for v in a.public_values] == [int(v) for v in b.public_values], \
             f"shard {i + 1}: public values"
-    print(f"  prove_program_checkpointed of fibonacci({FIB_N}) on the card: "
-          f"{len(proof.shard_proofs)} shards, verified, every shard's main commitment and "
-          f"public values those of phase 9's prove_program", flush=True)
+    print(f"  prove_program_checkpointed of the first {CHECKPOINTED_SHARDS} of the "
+          f"{len(unpadded.shard_proofs)} shards of fibonacci({FIB_N}) on the card: each "
+          f"verified, its main commitment and public values those of phase 9's prove_program",
+          flush=True)
     print("  seconds by driver: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()),
           flush=True)
     return total
@@ -1671,6 +1933,7 @@ def run(dev, procs) -> None:
     mesh_launches = phase(12, "the multi-device path", phase_mesh, dev, program, machine, pk,
                           vk, proof)
     driver_launches = phase(13, "the drivers", phase_drivers, smi, unpadded)
+    composition_launches = phase(14, "the composition path", phase_composition, smi)
     print("seconds by phase (phase 2 is the build above): "
           + ", ".join(f"{n}: {s:.1f}" for n, s in sorted(seconds.items()))
           + f"; the whole script {time.perf_counter() - started:.1f}", flush=True)
@@ -1684,7 +1947,8 @@ def run(dev, procs) -> None:
                 "replaces": replaces,
                 "launches": launches[name] + recursion_launches[name]
                 + sum(service_launches[name]) + fused_launches[name]
-                + precompile_launches[name] + mesh_launches[name] + driver_launches[name],
+                + precompile_launches[name] + mesh_launches[name] + driver_launches[name]
+                + composition_launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "shape": str(shape), **({"latency_floor_ms": r["latency_floor"][shape]}

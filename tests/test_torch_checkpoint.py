@@ -3,7 +3,9 @@ device (the GPU by default): on the CPU its proof is byte-equal, shard for
 shard, to the port's host prover's and to the JAX package's, at the
 smallest fibonacci that makes two shards, and its shards carry the main
 commitments and public values of prove_program's (as
-tests/test_checkpoint.py holds the JAX package's)."""
+tests/test_checkpoint.py holds the JAX package's); a prefix of the
+execution (`shards=1`) is the first shard of the whole proof, byte for
+byte."""
 
 import os
 
@@ -48,6 +50,10 @@ def test_checkpointed_cpu_equals_host_and_jax(monkeypatch):
                                       device="host")[3]
     assert len(torch_proved) == 2  # "host" is the numpy prover
     assert [serialize_shard_proof(sp) for sp in host.shard_proofs] == got
+    # a prefix of the execution: its first shard, the same bytes
+    prefix = prove_program_checkpointed(program, config=dev_config(), shard_size=SHARD_SIZE,
+                                        device="host", shards=1)[3]
+    assert [serialize_shard_proof(sp) for sp in prefix.shard_proofs] == got[:1]
     jproof = jcheckpointed(jfibonacci_program(N), config=jdev_config(),
                            shard_size=SHARD_SIZE)[3]
     assert [jserialize(sp) for sp in jproof.shard_proofs] == got

@@ -303,6 +303,58 @@ def test_a_compressed_prove_reply_holds_no_torch_object(monkeypatch):
     assert rm.verify(rvk, MachineProof([final_sp]))
 
 
+def _phantom_triple(seed: int):
+    """A compressed triple (rec_machine, rec_vk, final shard proof) with no
+    proving: a small traced program's recursion machine and keys, and a
+    structural stand-in of its proof (shape_universe.phantom_shard_proof)
+    whose public values are a seeded RPV."""
+    import numpy as np
+
+    from ziren_tpu_torch.recursion import shape_universe as su
+    from ziren_tpu_torch.recursion.dsl import Tracer
+    from ziren_tpu_torch.recursion.machine import recursion_machine
+    from ziren_tpu_torch.recursion.mips_pipeline import RPV_WIDTH
+
+    t = Tracer(num_inputs=2)
+    t.output(t.input(0) * t.input(1) + seed)
+    prog = t.program()
+    rm, _compiled = recursion_machine(prog)
+    _rpk, rvk = rm.setup(prog)
+    sp = su.phantom_shard_proof(rm, rvk, su.recursion_proof_shape(rm, rvk))
+    rng = np.random.default_rng(seed)
+    sp.public_values = [int(v) for v in rng.integers(0, 2130706433, RPV_WIDTH)]
+    return rm, rvk, sp
+
+
+def test_a_compressed_prove_request_carries_sub_proofs(server, served, monkeypatch):
+    """NetworkProver.compressed_prove(pk, deferred=[...]): the compressed
+    triples cross the wire in the request, through the allowlist, and reach
+    the server's ProverClient.compressed_prove with the same bytes; the
+    request holds no torch object and no class from outside this package,
+    numpy and the builtins."""
+    prover, pk = served[0], served[2]
+    sent = [_phantom_triple(1), _phantom_triple(2)]
+    received = []
+
+    def compressed_prove(pk, stdin=None, shard_size=None, deferred=None, **kw):
+        received.append(deferred)
+        return deferred[0]
+
+    monkeypatch.setattr(server.service._client, "compressed_prove", compressed_prove)
+    blob = wire.dumps({"program_id": pk.program_id, "stdin": None, "shard_size": None,
+                       "deferred": sent})
+    found = _no_torch(blob)
+    assert {"ziren_tpu_torch.stark.machine", "ziren_tpu_torch.recursion.machine"} <= {
+        g[0] for g in found}
+    reply = prover.compressed_prove(pk, deferred=sent, verify=False)
+    assert len(received) == 1 and len(received[0]) == len(sent)
+    for (rm, rvk, sp), (srm, srvk, ssp) in zip(received[0] + [reply], sent + sent[:1]):
+        assert tser.serialize_shard_proof(sp) == tser.serialize_shard_proof(ssp)
+        assert list(rvk.commit) == list(srvk.commit)
+        assert [c.name for c in rm.chips] == [c.name for c in srm.chips]
+        assert list(sp.public_values) == list(ssp.public_values)
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="this machine has a CUDA device")
 def test_a_server_without_a_device_fails_at_the_first_prove():
     """ProverServer() is the GPU's: it starts, sets up and executes on the

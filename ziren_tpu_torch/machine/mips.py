@@ -233,7 +233,8 @@ def prove_program(program, stdin=None, config=None, shard_size=None,
 
 
 def prove_program_checkpointed(program, stdin=None, config=None,
-                               shard_size=4096, workers=None, device=None):
+                               shard_size=4096, workers=None, device=None,
+                               shards=None):
     """Memory-bounded pipelined prove (reference: utils/prove.rs —
     checkpoint-exec then parallel trace workers): a fast untraced pass
     collects shard-boundary checkpoints, then worker threads regenerate each
@@ -244,7 +245,11 @@ def prove_program_checkpointed(program, stdin=None, config=None,
     one), a torch device runs the torch shard prover (stark/tprover.py)
     there, the shards proved in order on the calling thread while the
     workers regenerate the next ones; "host" is the numpy prover, whose
-    workers regenerate and prove each shard."""
+    workers regenerate and prove each shard.
+
+    `shards` proves only the first that many shards of the execution (None:
+    all of them): a prefix, whose shards verify one by one
+    (stark/verifier.py:verify_shard) but not as a whole execution."""
     import os
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
@@ -290,7 +295,7 @@ def prove_program_checkpointed(program, stdin=None, config=None,
 
     from ..stark.proof import MachineProof
 
-    n = len(cps)
+    n = len(cps) if shards is None else min(shards, len(cps))
     workers = workers or min(n, os.cpu_count() or 4)
     if on_host and n == 1:
         proofs = [prove_one(0)]

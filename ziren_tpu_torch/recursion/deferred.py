@@ -101,7 +101,12 @@ def deferred_leaf(sub_side, prev_digest, config=None, device=None):
     root (is_complete must be 1). prev_digest: chain digest before this
     claim. Returns (machine, vk, shard_proof) with DPV public values.
     `device` (here and below) is where the recursion proof is made
-    (StarkMachine.prove: None is the GPU, a torch device, or "host")."""
+    (StarkMachine.prove: None is the GPU, a torch device, or "host"); it is
+    resolved first, so that a caller without a card fails before the
+    verifier is traced."""
+    from ..device import prover_device
+
+    prover_device(device)
     sub_m, sub_vk, sub_sp = sub_side
     sub_rpv = [int(v) for v in sub_sp.public_values]
     assert len(sub_rpv) == RPV_WIDTH, "sub-proof must expose the RPV layout"
@@ -149,6 +154,9 @@ def claim_vk_digest_from_rpv(rpv) -> list:
 
 def deferred_join(side_a, side_b, config=None, device=None):
     """Chain two deferred sub-chains: a.end == b.start."""
+    from ..device import prover_device
+
+    prover_device(device)
     (ma, vka, spa), (mb, vkb, spb) = side_a, side_b
     dpv_a = [int(v) for v in spa.public_values]
     dpv_b = [int(v) for v in spb.public_values]
@@ -202,8 +210,11 @@ def attach_deferred(core_side, deferred_side, config=None, device=None):
     END_RECON := chain end, is_complete recomputed — complete iff the
     chain reconstructs exactly the digest the guest claimed."""
     from ..core import septic as S
+    from ..device import prover_device
     from .mips_pipeline import _is_complete
     from .septic import host_sum_digest  # noqa: F401  (doc pointer)
+
+    prover_device(device)
 
     (cm, cvk, csp), (dm, dvk, dsp) = core_side, deferred_side
     core_rpv = [int(v) for v in csp.public_values]

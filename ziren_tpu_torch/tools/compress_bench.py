@@ -20,8 +20,8 @@ Prints the seconds of every lift and join with their split (see
 `instrument`), of the registry enumeration and of shrink, the chips and
 heights of the lift, join and shrink machines, the kernels' launch counts
 and launch shapes, peak device and host memory, and one JSON object as its
-last line. chip_smoke.py's recursion phase uses `instrument`, `summary` and
-`tree_registry` too.
+last line. chip_smoke.py's recursion and composition phases use
+`instrument`, `summary` and `tree_registry` too.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..recursion import deferred as rd
 from ..recursion import mips_pipeline as mp
 from ..recursion import pipeline as pl
 from ..stark import machine as smachine
@@ -46,6 +47,9 @@ from ..stark.backend import resolve_device
 from ..stark.proof import MachineProof
 
 _tl = threading.local()
+# the nodes of the composition path that `instrument` times, each a
+# recursion proof (deferred_chain is leaves and joins)
+DEFERRED_NODES = ("deferred_leaf", "deferred_join", "attach_deferred")
 
 
 def _part(name, fn):
@@ -63,9 +67,10 @@ def _part(name, fn):
 
 
 def _node(kind, fn, out):
-    """fn (a lift, a join, a shrink) as one node of the tree: its seconds and
-    those of its parts, appended to out[kind], or to out["enum_" + kind] when
-    the call only enumerates a vk (setup_only / phantom)."""
+    """fn (a lift, a join, a shrink, a deferred node) as one node of the
+    tree: its seconds and those of its parts, appended to out[kind], or to
+    out["enum_" + kind] when the call only enumerates a vk (setup_only /
+    phantom)."""
     def wrapper(*a, **k):
         enum = k.get("setup_only") or k.get("phantom")
         _tl.cur = cur = {}
@@ -101,17 +106,21 @@ def _node(kind, fn, out):
 def instrument():
     """Times the recursion tree without changing it. Yields a dict that
     fills with one entry a node that ran to its end: {"lift": [...], "join":
-    [...], "shrink": [...], "enum_lift": [...], "enum_join": [...]}. An entry
-    has the node's machine (machine_shape) when it proved, and splits its
-    total_s into trace_verifier_s (the traced shard verifier: the DSL
-    program), setup_s (machine and keys; the preprocessed commit on the host,
-    0 when the shape is cached), witness_s (register values and host trace
-    generation), device_pk_s (the preprocessed commit again on the device,
-    once a key) and prove_s (the shard prover: dispatch, fetch, assembly)."""
+    [...], "shrink": [...], "enum_lift": [...], "enum_join": [...]}, and on
+    the composition path (recursion/deferred.py) "deferred_leaf",
+    "deferred_join" and "attach_deferred". An entry has the node's machine
+    (machine_shape) when it proved, and splits its total_s into
+    trace_verifier_s (the traced shard verifier: the DSL program), setup_s
+    (machine and keys; the preprocessed commit on the host, 0 when the shape
+    is cached), witness_s (register values and host trace generation),
+    device_pk_s (the preprocessed commit again on the device, once a key)
+    and prove_s (the shard prover: dispatch, fetch, assembly)."""
     out: dict = {}
     proved = _part("prove_cached", pl._prove_cached)
     saved = [(mp, "lift_shard", mp.lift_shard), (mp, "join", mp.join), (pl, "lift", pl.lift),
              (mp, "_prove_cached", mp._prove_cached), (pl, "_prove_cached", pl._prove_cached),
+             (rd, "_prove_cached", rd._prove_cached),
+             *[(rd, name, getattr(rd, name)) for name in DEFERRED_NODES],
              (pl, "_setup_cached", pl._setup_cached),
              (smachine.StarkMachine, "prove", smachine.StarkMachine.prove),
              (tprover, "_named_traces", tprover._named_traces),
@@ -119,7 +128,9 @@ def instrument():
     mp.lift_shard = _node("lift", mp.lift_shard, out)
     mp.join = _node("join", mp.join, out)
     pl.lift = _node("shrink", pl.lift, out)
-    mp._prove_cached = pl._prove_cached = proved
+    for name in DEFERRED_NODES:
+        setattr(rd, name, _node(name, getattr(rd, name), out))
+    mp._prove_cached = pl._prove_cached = rd._prove_cached = proved
     pl._setup_cached = _part("setup", pl._setup_cached)
     smachine.StarkMachine.prove = _part("machine_prove", smachine.StarkMachine.prove)
     tprover._named_traces = _part("trace_gen", tprover._named_traces)
