@@ -137,7 +137,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      in shards of 2^16 - 64 cycles (every stage and leg on a line of its
      own beside the card's name and power limit; both proofs verified, and
      profile_device's serial legs byte-equal to its machine.prove),
-     bench_prove (its JSON line printed as is), profile_prove, the four
+     bench_prove (its JSON line printed as is), tools/bench.py's three
+     stages on fibonacci(BENCH_N) (in this process, as its child runs them:
+     each line's backend cuda, the full stage's proof verified),
+     profile_prove, the four
      precompile examples and network_prover at the dev config, prove_guest
      on minimal_elf(); then machine.mips.prove_program_checkpointed of the
      first CHECKPOINTED_SHARDS shards of fibonacci(58218) on the card, each
@@ -157,7 +160,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      registry (compress_bench.tree_registry), as phase 8's. Reports each
      node's seconds and split (compress_bench.instrument), the machines'
      chips and heights, peak device memory, and the launches and launch
-     shapes (K1_COMPOSITION_SHAPES, K3_COMPOSITION_SHAPES).
+     shapes (K1_COMPOSITION_SHAPES, K3_COMPOSITION_SHAPES);
+ 15. standalone memory shards and unconstrained blocks at the core config
+     on the card (phase_memory): tools/memory_programs.py's sweep of the
+     card host's own combine_memory_threshold + SWEEP_EXTRA words, in
+     shards of 2^16 - 64 cycles, has a memory shard with no Cpu; its eager
+     proof is byte-equal, shard for shard, to the host prover's proof of the
+     same records (memory_host_proof, a process started with the script),
+     verifies, and a tampered address-bit chain is refused; the memory shard
+     is lifted under its tree's registry and the lift verified; the
+     unconstrained program's hint is read back, and its proof verifies.
+     Reports the shards' chips and heights, trace generation by chip (the
+     Global chip's), the legs, the lift's split, peak device memory, and the
+     launches and launch shapes (K1_MEMORY_SHAPES, K3_MEMORY_SHAPES).
 
 The script needs one CUDA card. The last two lines are the kernels' JSON
 record and the result line
@@ -314,12 +329,26 @@ K1_COMPOSITION_SHAPES = [
     (32, 16), (8, 475), (8, 224), (8, 80),
 ]
 K3_COMPOSITION_SHAPES = [(256, (64, 32, 8)), (256, (32, 8))]
+# Phase 15: the memory sweep's two execution shards (MemoryInstructions
+# 2^15, MemoryLocal 2^14) and its memory shard (MemoryInit and MemoryFinal
+# 2^15, Global 2^16), the memory shard's lift (RecFriFold 2^16) and the
+# unconstrained program, at the core config. Found by one run on the card of
+# phase 15 and phase 13's bench stages with the check put off (at the card
+# host's threshold the sweep is a full-size run, not one for a CPU);
+# launches_of names any shape left out.
+K1_MEMORY_SHAPES = [
+    (131072, 154), (131072, 132), (131072, 96), (131072, 63), (65536, 388), (65536, 120),
+    (65536, 68), (65536, 63), (65536, 36), (512, 250), (512, 28), (512, 2), (128, 1),
+    (64, 47), (64, 14), (64, 12), (32, 97), (8, 684), (8, 570), (8, 320), (8, 276),
+]
+K3_MEMORY_SHAPES = [(256, (64,))]
 K1_ALL_SHAPES = list(dict.fromkeys(K1_SHAPES + K1_RECURSION_SHAPES + K1_SERVICE_SHAPES
                                    + K1_LADDER_SHAPES + K1_CLI_SHAPES + K1_PRECOMPILE_SHAPES
                                    + K1_MESH_SHAPES + K1_DRIVER_SHAPES
-                                   + K1_COMPOSITION_SHAPES))
+                                   + K1_COMPOSITION_SHAPES + K1_MEMORY_SHAPES))
 K3_ALL_SHAPES = list(dict.fromkeys(K3_SHAPES + K3_CLI_SHAPES + K3_PRECOMPILE_SHAPES
-                                   + K3_DRIVER_SHAPES + K3_COMPOSITION_SHAPES))
+                                   + K3_DRIVER_SHAPES + K3_COMPOSITION_SHAPES
+                                   + K3_MEMORY_SHAPES))
 FIB_N, SHARD_SIZE, FIB_CYCLES = 58218, (1 << 16) - 64, 349318
 # How many of phase 5's six shard proofs phase 8 compresses: two make a
 # tree of one join over two lifts, in about a fifth of the time all six
@@ -336,11 +365,20 @@ SERVED_IN_TURN, FUSED_PROVES = 1, 2
 CHECKPOINTED_SHARDS = 2
 # Phase 11: the rounds of each chain (the reference's sha2-chain and
 # sha3-chain workloads, BASELINE.md): the sha2-chain's published 230, and
-# the sha3-chain's 460 halved for the host trace generation of KeccakSponge.
-CHAIN_N = {"sha256": 230, "keccak": 230}
+# the sha3-chain's 460 cut to a quarter (a half before phase 15 was added)
+# for the host trace generation of KeccakSponge, so that the script stays
+# inside its time limit at the slowest host pace it has shown.
+CHAIN_N = {"sha256": 230, "keccak": 115}
 # Phase 14: the sub-guest whose compressed proof the claim guest claims,
 # fibonacci(2000), one shard of 12,010 cycles (bench_prove's workload).
 COMPOSITION_N = 2000
+# Phase 13: tools/bench.py's stages on bench_prove's workload, fibonacci(2000).
+BENCH_N = 2000
+# Phase 15: the memory sweep touches the card host's own
+# combine_memory_threshold (SplitOpts.from_env(), read at run time) and
+# SWEEP_EXTRA words more, so that its init and finalize events leave the
+# execution shards for a memory shard at the production split options.
+SWEEP_EXTRA = 4096
 
 
 def minimal_elf(n: int = 10, vaddr: int = 0x10000) -> bytes:
@@ -1226,8 +1264,9 @@ def phase_recursion(program, machine, vk, proof) -> dict:
         t0 = time.perf_counter()
         registry = cb.tree_registry(machine, vk, shards, config)
         t1 = time.perf_counter()
-        rm, rvk, root = mp.compress(machine, vk, MachineProof(shards), config=config,
-                                    registry=registry)  # device=None: the GPU
+        with device_commits() as (keys, commits):
+            rm, rvk, root = mp.compress(machine, vk, MachineProof(shards), config=config,
+                                        registry=registry)  # device=None: the GPU
         t2 = time.perf_counter()
         sm, svk, sproof, _ = pl.shrink(rm, rvk, root, config=compressed_config())
         torch.cuda.synchronize()
@@ -1252,6 +1291,11 @@ def phase_recursion(program, machine, vk, proof) -> dict:
     assert [int(v) for v in sproof.shard_proofs[0].public_values] == pl.lift_digest(rvk, root)
     verify_s = time.perf_counter() - t0
     assert len(times["lift"]) == len(shards) and len(times["join"]) == len(shards) - 1
+    # the bounded table of device keys (stark/tprover.py) commits each key the
+    # tree proves under once, as each key's own cache did before it: beside
+    # a main, a permutation and a quotient commit a proof
+    proofs = len(times["lift"]) + len(times["join"])
+    assert len(commits) == 3 * proofs + len(keys), (len(commits), proofs, len(keys))
 
     print(f"  {len(shards)} of {len(proof.shard_proofs)} core-config shard proofs: the "
           f"tree's registry {registry_s:.2f} s, compress {compress_s:.2f} s "
@@ -1263,9 +1307,38 @@ def phase_recursion(program, machine, vk, proof) -> dict:
         print(f"  {kind} s, total (split): " + cb.summary(times[kind]), flush=True)
         print(f"  last {kind}'s machine (chip, log2 height, width, preprocessed width): "
               f"{times[kind][-1]['machine']}", flush=True)
+    print(f"  compress made {len(commits)} device commits: one for each of its {len(keys)} "
+          f"keys and three for each of its {proofs} proofs", flush=True)
     print(f"  peak device memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB)",
           flush=True)
     return launches
+
+
+@contextlib.contextmanager
+def device_commits():
+    """While open, the keys whose device data the torch prover asks for
+    (stark/tprover.py:device_pk, each key once) and its device commits
+    (ops/tpcs.commit, each call) are listed."""
+    from ziren_tpu_torch.ops import tpcs
+    from ziren_tpu_torch.stark import tprover
+
+    keys, commits = [], []
+    real_pk, real_commit = tprover._device_pk, tpcs.commit
+
+    def spy_pk(machine, pk, device):
+        if not any(k is pk for k in keys):
+            keys.append(pk)
+        return real_pk(machine, pk, device)
+
+    def spy_commit(*args, **kw):
+        commits.append(1)
+        return real_commit(*args, **kw)
+
+    tprover._device_pk, tpcs.commit = spy_pk, spy_commit
+    try:
+        yield keys, commits
+    finally:
+        tprover._device_pk, tpcs.commit = real_pk, real_commit
 
 
 def compose(config, device=None) -> dict:
@@ -1364,12 +1437,15 @@ def phase_composition(card: str) -> dict:
     """Phase 14: compose() at the core config on the card, every node timed
     and split by compress_bench.instrument. Returns the kernels' launches."""
     from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.stark import tfused, tprover
     from ziren_tpu_torch.stark.config import core_config
     from ziren_tpu_torch.tools import compress_bench as cb
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()  # the earlier phases' cached keys
+    held = torch.cuda.memory_allocated()  # what the earlier phases left allocated
+    keys, keys_bytes = len(tprover.device_keys()), tensor_bytes(list(tprover._DEVICE_KEYS.values()))
+    pools = [fs.pool_bytes for fs in tfused._MEM.values()]
     kernels.reset_launches()
     with cb.instrument() as times:
         out = compose(core_config())  # device=None: the GPU
@@ -1400,9 +1476,183 @@ def phase_composition(card: str) -> dict:
           f"compress's membership checks): "
           + ", ".join(f"{e['total_s']:.2f}" for e in times["enum_lift"]) + " s", flush=True)
     print(f"  peak device memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB); {held} "
-          f"bytes of them were held when the phase began (the earlier phases' keys)",
-          flush=True)
+          f"bytes of them were held when the phase began: the table of device keys "
+          f"{keys_bytes} bytes in {keys} entries (stark/tprover.py), the fused graphs' pools "
+          f"{sum(pools)} bytes in {len(pools)} graphs (stark/tfused.py), the rest the "
+          f"earlier phases' other caches", flush=True)
     return launches
+
+
+def tensor_bytes(obj) -> int:
+    """The bytes of the distinct tensor storages reachable from obj through
+    dicts, lists, tuples and objects' attributes."""
+    seen, visited, stack, total = set(), set(), [obj], 0
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+            continue
+        if id(x) in visited:
+            continue
+        visited.add(id(x))
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif hasattr(x, "__dict__") and not callable(x):
+            stack.extend(vars(x).values())
+    return total
+
+
+def phase_memory(card: str, host_proc) -> dict:
+    """Phase 15: standalone memory shards and unconstrained blocks at the core
+    config on the card. The memory sweep (sweep()) in shards of SHARD_SIZE
+    cycles has a shard with no Cpu; its eager proof is byte-equal, shard for
+    shard, to the host prover's proof that memory_host_proof's process made
+    of the same records, verifies, and a tampered address-bit chain is
+    refused. Its memory shard is lifted (mips_pipeline.lift_shard under the
+    registry of that shard's tree, compress_bench.tree_registry, timed by
+    compress_bench.instrument) and the lift verified. Then the unconstrained
+    program (tools/memory_programs.py) is executed, its hint checked, proved
+    and verified. Returns the kernels' launches over the phase."""
+    from ziren_tpu_torch import kernels
+    from ziren_tpu_torch.executor import Executor, asm
+    from ziren_tpu_torch.machine.mips import execute_sharded, mips_machine, verify_mips_proof
+    from ziren_tpu_torch.recursion import mips_pipeline as mp
+    from ziren_tpu_torch.recursion.shape_universe import record_kind
+    from ziren_tpu_torch.stark import carry
+    from ziren_tpu_torch.stark.config import core_config
+    from ziren_tpu_torch.stark.machine import prove
+    from ziren_tpu_torch.stark.proof import MachineProof
+    from ziren_tpu_torch.stark.serialize import serialize_shard_proof
+    from ziren_tpu_torch.stark.verifier import VerificationError
+    from ziren_tpu_torch.tools import compress_bench as cb
+    from ziren_tpu_torch.tools.memory_programs import sweep_fold, unconstrained_program
+
+    total: dict = {}
+
+    def counted(path):
+        for k, v in launches_of(path).items():
+            total[k] = total.get(k, 0) + v
+
+    program, n_words = sweep()
+    machine = mips_machine(core_config())
+    pk, vk = machine.setup(program)
+    t0 = time.perf_counter()
+    ex, records = execute_sharded(program, SHARD_SIZE)
+    exec_s = time.perf_counter() - t0
+    assert ex.peek_register(11) == sweep_fold(n_words), "the sweep's fold"
+    last = records[-1].public_values
+    assert last.exit_code == 0 and last.committed_value_digest[0] == sweep_fold(n_words)
+    kinds = [record_kind(r) for r in records]
+    assert "memory" in kinds, f"no memory shard at {n_words} words: {kinds}"
+
+    clock = _TraceGenClock(machine)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        proof = prove(machine, pk, records, fix_shapes=True, stats=stats)  # device=None: the GPU
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        trace_s = clock.take()
+    finally:
+        clock.remove()
+    counted("the memory sweep")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    assert verify_mips_proof(machine, vk, proof, pc_start=program.pc_start)
+    verify_s = time.perf_counter() - t0
+    shards = [serialize_shard_proof(sp) for sp in proof.shard_proofs]
+    memory = [i for i, sp in enumerate(proof.shard_proofs) if "Cpu" not in sp.chip_names]
+    assert memory and len(shards) == len(records)
+
+    line, waited = host_output(host_proc, "the memory sweep's host process")
+    host = json.loads(line)
+    assert host["n_words"] == n_words
+    assert len(host["shards"]) == len(shards)
+    for i, (a, b) in enumerate(zip(shards, host["shards"])):
+        assert a.hex() == b, f"the memory sweep's shard {i + 1} differs from the host prover's"
+
+    tampered = carry.machine_proof_from_shard_bytes(shards)
+    sp = tampered.shard_proofs[memory[0]]
+    k = sp.public_values.index(1, 45)  # the first set bit of the address chains
+    sp.public_values[k] = 0
+    try:
+        verify_mips_proof(machine, vk, tampered, pc_start=program.pc_start)
+    except VerificationError:
+        pass
+    else:
+        raise AssertionError("verify_mips_proof took a tampered memory chain")
+
+    print(f"  {card}; core config; memory_sweep_program({n_words}) (the host's "
+          f"combine_memory_threshold + {SWEEP_EXTRA}): cycles {int(ex.global_clk)}, "
+          f"execute {exec_s:.3f} s, shards {len(records)} ({', '.join(kinds)})", flush=True)
+    for i, sp in enumerate(proof.shard_proofs):
+        print(f"  shard {i + 1} (chip, log2 height): "
+              f"{[(c, v.log_degree) for c, v in zip(sp.chip_names, sp.opened_values)]}",
+              flush=True)
+    print(f"  prove {prove_s:.3f} s on the card ({int(ex.global_clk) / prove_s / 1e3:.3f} kHz), "
+          f"verify_mips_proof ok in {verify_s:.3f} s; byte-equal shard for shard to the host "
+          f"prover's proof ({host['seconds']:.2f} s in its process, waited {waited:.2f} s); "
+          "a tampered address-bit chain refused", flush=True)
+    print("  per-shard trace-gen wait s: " + ", ".join(f"{s:.3f}" for s in stats["trace_wait_s"])
+          + "; dispatch s: " + ", ".join(f"{s:.3f}" for s in stats["dispatch_s"])
+          + f"; fetch {stats['fetch_s']:.3f} s, assemble {stats['assemble_s']:.3f} s", flush=True)
+    print("  trace generation, host seconds by chip (threads overlap): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(trace_s.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    print(f"  the Global chip's trace generation: {trace_s.get('Global', 0.0):.3f} s; peak device "
+          f"memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB)", flush=True)
+
+    # the memory shard's lift
+    kernels.reset_launches()
+    mem_sp = proof.shard_proofs[memory[0]]
+    with cb.instrument() as times:
+        t0 = time.perf_counter()
+        registry = cb.tree_registry(machine, vk, [mem_sp], machine.config)
+        t1 = time.perf_counter()
+        rm, rvk, lifted = mp.lift_shard(machine, vk, mem_sp, config=machine.config,
+                                        vk_root=registry.root)  # device=None: the GPU
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counted("the memory shard's lift")
+    assert rm.verify(rvk, MachineProof([lifted]))
+    registry.membership(rvk.commit)
+    rpv = [int(v) for v in lifted.public_values]
+    assert rpv[mp.RPV_START_SHARD] == memory[0] + 1 and rpv[mp.RPV_VK : mp.RPV_VK + 8] == [
+        int(v) for v in vk.commit]
+    print(f"  the memory shard's lift: its tree's registry {t1 - t0:.2f} s, lift {t2 - t1:.2f} s, "
+          f"verified, its vk a member; s, total (split): " + cb.summary(times["lift"]),
+          flush=True)
+    print(f"  the lift's machine (chip, log2 height, width, preprocessed width): "
+          f"{times['lift'][-1]['machine']}", flush=True)
+
+    # the unconstrained program
+    kernels.reset_launches()
+    uprog = unconstrained_program(asm)
+    upk, uvk = machine.setup(uprog, extra_observations=[uprog.pc_start])
+    uex = Executor(uprog)
+    urec = uex.run()
+    assert uex.peek_register(20) == 42 and uex.peek_register(21) == 4, "the hint round trip"
+    assert uex.peek_word(0x2000) == 0, "the block's writes were not reverted"
+    t0 = time.perf_counter()
+    uproof = prove(machine, upk, [urec], fix_shapes=True)
+    torch.cuda.synchronize()
+    uprove_s = time.perf_counter() - t0
+    counted("the unconstrained program")
+    assert verify_mips_proof(machine, uvk, uproof, pc_start=uprog.pc_start)
+    print(f"  the unconstrained program: the hint read back (r20 = 42, r21 = 4), the block "
+          f"reverted; proved in {uprove_s:.3f} s, verified; its shard (chip, log2 height): "
+          f"{[(c, v.log_degree) for c, v in zip(uproof.shard_proofs[0].chip_names, uproof.shard_proofs[0].opened_values)]}",
+          flush=True)
+    print(f"  kernel launches over phase 15: {total}", flush=True)
+    return total
 
 
 def ladder_claim_guest(sub_pk):
@@ -1484,6 +1734,37 @@ def group_host_proofs() -> None:
         out[name] = {"seconds": time.perf_counter() - t0,
                      "shards": [serialize_shard_proof(sp).hex() for sp in proof.shard_proofs]}
     print(json.dumps(out), flush=True)
+
+
+def sweep():
+    """Phase 15's memory sweep: (the program, its words)."""
+    from ziren_tpu_torch.executor import asm
+    from ziren_tpu_torch.executor.split import SplitOpts
+    from ziren_tpu_torch.tools.memory_programs import memory_sweep_program
+
+    n_words = SplitOpts.from_env().combine_memory_threshold + SWEEP_EXTRA
+    return memory_sweep_program(asm, n_words), n_words
+
+
+def memory_host_proof() -> None:
+    """The host prover's proof of phase 15's memory sweep (the same program,
+    config, execution and fixed shapes as the card's), printed as one JSON
+    line of hex shard proofs, the words and the seconds. The script runs this
+    in a process of its own, which sees no card, while the earlier phases
+    run."""
+    from ziren_tpu_torch.machine.mips import execute_sharded, mips_machine
+    from ziren_tpu_torch.stark.config import core_config
+    from ziren_tpu_torch.stark.serialize import serialize_shard_proof
+
+    program, n_words = sweep()
+    machine = mips_machine(core_config())
+    pk, _vk = machine.setup(program)
+    _ex, records = execute_sharded(program, SHARD_SIZE)
+    t0 = time.perf_counter()
+    proof = machine.prove(pk, records, device="host", fix_shapes=True)
+    print(json.dumps({"n_words": n_words, "seconds": time.perf_counter() - t0,
+                      "shards": [serialize_shard_proof(sp).hex()
+                                 for sp in proof.shard_proofs]}), flush=True)
 
 
 def start_host_process(call: str):
@@ -1771,6 +2052,24 @@ def ladder_composition(dev, sub_pk, sub, registry) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def bench_env():
+    """While open, tools/bench.py's main runs its stages in this process
+    (ZIREN_BENCH_CHILD=1) on fibonacci(BENCH_N) in shards of SHARD_SIZE."""
+    want = {"ZIREN_BENCH_CHILD": "1", "ZIREN_BENCH_FIB_N": str(BENCH_N),
+            "ZIREN_BENCH_SHARD_SIZE": str(SHARD_SIZE)}
+    saved = {k: os.environ.get(k) for k in want}
+    os.environ.update(want)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
 def phase_drivers(card: str, unpadded) -> dict:
     """Phase 13: the drivers of ziren_tpu_torch/tools and
     ziren_tpu_torch/examples, each through its main in this process (the
@@ -1787,7 +2086,8 @@ def phase_drivers(card: str, unpadded) -> dict:
     from ziren_tpu_torch.stark.verifier import verify_shard
     from ziren_tpu_torch.stark.config import core_config
     from ziren_tpu_torch.stark.serialize import serialize_machine_proof
-    from ziren_tpu_torch.tools import bench_prove, device_probe, profile_device, profile_prove
+    from ziren_tpu_torch.tools import (bench, bench_prove, device_probe, profile_device,
+                                       profile_prove)
 
     total: dict = {}
     seconds: dict = {}
@@ -1830,8 +2130,17 @@ def phase_drivers(card: str, unpadded) -> dict:
     _proof, text = drive("bench_prove", bench_prove.main)
     line = text.strip().splitlines()[-1]
     print(line, flush=True)
-    bench = json.loads(line)
-    assert bench["config"] == "core" and bench["shards"] == 1 and bench["cycles"] > 0, bench
+    out = json.loads(line)
+    assert out["config"] == "core" and out["shards"] == 1 and out["cycles"] > 0, out
+    # tools/bench.py's stages in this process, as its child runs them
+    with bench_env():
+        _none, text = drive("bench", bench.main)
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    assert [ln["detail"]["staged"] for ln in lines] == ["warmup-incl-loads", "prove-only",
+                                                        "full"], text
+    assert all(ln["detail"]["backend"] == "cuda" and ln["detail"]["config"] == "core"
+               and ln["vs_baseline"] is not None for ln in lines), text
+    assert lines[-1]["detail"]["verified"] is True
     _proof, text = drive("profile_prove", profile_prove.main)
     assert text.startswith("cycles=") and "function calls" in text, "profile_prove"
     for which in precompiles.PROGRAMS:
@@ -1873,7 +2182,8 @@ def phase_drivers(card: str, unpadded) -> dict:
 def main() -> None:
     dev = require_cuda()
     procs = {"ladder": start_host_process("ladder_registry"),
-             "groups": start_host_process("group_host_proofs")}
+             "groups": start_host_process("group_host_proofs"),
+             "memory": start_host_process("memory_host_proof")}
     try:
         run(dev, procs)
     finally:
@@ -1893,6 +2203,7 @@ def run(dev, procs) -> None:
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[n] = time.perf_counter() - t0
+        print(f"  phase {n} took {seconds[n]:.1f} s", flush=True)
         return out
 
     print("phase 1: environment", flush=True)
@@ -1934,6 +2245,8 @@ def run(dev, procs) -> None:
                           vk, proof)
     driver_launches = phase(13, "the drivers", phase_drivers, smi, unpadded)
     composition_launches = phase(14, "the composition path", phase_composition, smi)
+    memory_launches = phase(15, "standalone memory shards and unconstrained blocks",
+                            phase_memory, smi, procs["memory"])
     print("seconds by phase (phase 2 is the build above): "
           + ", ".join(f"{n}: {s:.1f}" for n, s in sorted(seconds.items()))
           + f"; the whole script {time.perf_counter() - started:.1f}", flush=True)
@@ -1948,7 +2261,7 @@ def run(dev, procs) -> None:
                 "launches": launches[name] + recursion_launches[name]
                 + sum(service_launches[name]) + fused_launches[name]
                 + precompile_launches[name] + mesh_launches[name] + driver_launches[name]
-                + composition_launches[name],
+                + composition_launches[name] + memory_launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                 "shape": str(shape), **({"latency_floor_ms": r["latency_floor"][shape]}

@@ -4,7 +4,8 @@ package's host prover and carried into the port as bytes; each package then
 compresses it (two lifts and a join) and shrinks the root, the port with its
 torch shard prover on the CPU, the JAX package with its host prover. Root
 and shrink proofs are compared as bytes, the registry roots as words, and
-each package's verify_compressed takes the other's root proof.
+each package's verify_compressed takes the other's root proof. The port's
+compress commits each key it proves under once on the device.
 
 In the default profile both packages compress under their own lift-only
 registry (mips_pipeline.build_lift_registry). The default registry, the full
@@ -31,7 +32,8 @@ import ziren_tpu_torch.stark.config as tconfig
 import ziren_tpu_torch.stark.proof as tproof
 import ziren_tpu_torch.stark.serialize as tser
 import ziren_tpu_torch.stark.verifier as tverifier
-from ziren_tpu_torch.stark import carry
+from chip_smoke import device_commits
+from ziren_tpu_torch.stark import carry, tprover
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -56,7 +58,14 @@ def _compress_both(two_shard, jregistry, tregistry):
     shrink proof equal; each package verifies the other's root."""
     (jprog, jm, jvk, jpf), (tprog, tm, tvk, tpf) = two_shard
     jrm, jrvk, jroot = jmp.compress(jm, jvk, jpf, registry=jregistry)
-    trm, trvk, troot = tmp.compress(tm, tvk, tpf, registry=tregistry, device="cpu")
+    with device_commits() as (keys, commits):
+        trm, trvk, troot = tmp.compress(tm, tvk, tpf, registry=tregistry, device="cpu")
+    # the bounded table of device keys (stark/tprover.py) evicts no key the
+    # tree still proves under: each is committed on the device once, as when
+    # every key kept its own commit, beside a main, a permutation and a
+    # quotient commit for each of the two lifts and the join
+    assert len(keys) <= tprover._DEVICE_KEYS_MAX
+    assert len(commits) == 3 * 3 + len(keys)
     data = tser.serialize_shard_proof(troot)
     assert data == jser.serialize_shard_proof(jroot)
     assert np.array_equal(trvk.commit, jrvk.commit)

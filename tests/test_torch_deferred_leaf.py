@@ -31,7 +31,7 @@ import ziren_tpu_torch.recursion.mips_pipeline as tmp
 import ziren_tpu_torch.recursion.pipeline as tpl
 import ziren_tpu_torch.stark.config as tconfig
 import ziren_tpu_torch.stark.serialize as tser
-from ziren_tpu_torch.stark import carry
+from ziren_tpu_torch.stark import carry, tprover
 from ziren_tpu_torch.tools import compress_bench as cb
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
@@ -86,9 +86,9 @@ def test_deferred_leaf_matches_jax(sub_root):
     assert trm.verify(trvk, carry.machine_proof_from_shard_bytes(
         [jser.serialize_shard_proof(jleaf)]))
     assert jrm.verify(jrvk, jproof.MachineProof([jser.deserialize_shard_proof(data)]))
-    # the leaf's keys hold one device commit, the CPU's
+    # the leaf's key has one device commit, the CPU's
     _rm, rpk, _rvk, _sig = next(v for v in tpl._SHAPE_CACHE.values() if v[2] is trvk)
-    assert list(rpk._torch_data_cache) == [torch.device("cpu")]
+    assert [dev for k, dev in tprover.device_keys() if k is rpk] == [torch.device("cpu")]
 
     assert [len(times.get(k, [])) for k in cb.DEFERRED_NODES] == [1, 0, 0]
     assert set(times) == {"deferred_leaf"}

@@ -28,9 +28,12 @@ verifies, is a plain copy; the wire's allowlist names this package, takes no
 dotted name and takes only a class that the package defines itself; the
 request verifier tests and records a nonce under one lock, so that two
 threaded copies of a signed request cannot both pass),
-__main__.py (the program's name, `--device`), and
+__main__.py (the program's name, `--device`),
 guest/build.py (include_elf searches ZIREN_ELF_PATH and the caller's root,
-and no fixed directory outside them).
+and no fixed directory outside them), and machine/global_chip.py (the
+running sum of the Global chip's trace, the same values, in Python ints
+packed into big ints where the original calls numpy on seven-element
+vectors: the host's longest trace on a memory shard).
 """
 
 import ast
@@ -66,6 +69,7 @@ BY_DESIGN = {
     "network/auth.py": {"RequestVerifier.__init__", "RequestVerifier.verify"},
     "__main__.py": {"_client", "_scaffold_guest", "main"},
     "guest/build.py": {"include_elf"},
+    "machine/global_chip.py": {"GlobalChip.generate_trace", "_running_sums"},
 }
 # by-design files whose module docstring names the port, and the
 # module-level names that the port adds or gives another value

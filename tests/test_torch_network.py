@@ -29,6 +29,7 @@ import ziren_tpu_torch.stark.serialize as tser
 from ziren_tpu_torch.network import NetworkProver, ProverServer, auth, wire
 from ziren_tpu_torch.network.client import NetworkProverError
 from ziren_tpu_torch.network.service import ProverService, program_id
+from ziren_tpu_torch.stark import tprover
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -260,17 +261,18 @@ def _no_torch(blob: bytes) -> set:
     assert found and not [g for g in found if g[0].split(".")[0] == "torch"], found
     assert {g[0].split(".")[0] for g in found} <= {"ziren_tpu_torch", "numpy", "builtins",
                                                    "collections"}, found
-    assert b"_torch_data_cache" not in blob
     wire.loads(blob)  # and the allowlist takes all of it
     return found
 
 
 def test_a_prove_core_reply_holds_no_torch_object(server, served):
     """The reply as the handler builds it, after a prove with device="cpu"
-    has hung its tensor cache on the server's proving key."""
+    has left the server's proving key's device data in the torch prover's
+    table of device keys (stark/tprover.py), which the key does not hold."""
     pk = served[2]
     spk, _svk = server.service._keys[pk.program_id]
-    assert getattr(spk.pk, "_torch_data_cache", None), "the prove left no cache on the key"
+    assert any(k is spk.pk for k, _dev in tprover.device_keys()), \
+        "the prove left no device data for the key"
     reply = server.service.ProveCore({"program_id": pk.program_id})
     found = _no_torch(wire.dumps({"ok": True, "result": reply}))
     assert ("ziren_tpu_torch.sdk", "ZirenProofWithPublicValues") in found

@@ -104,31 +104,24 @@ class GlobalChip(Air):
         events = self._events(record)
         n = len(events)
         w = COLS.writer(n)
-        acc = S.digest_zero()
-        accs = np.zeros((n, 14), dtype=np.uint32)
         if n:
-            xs_all, ys_all, offs_all = S.lift_x_batch(
-                np.array([m for m, _, _ in events], dtype=np.uint32)
-            )
-        for i, (msg, is_send, kind) in enumerate(events):
-            (x, y), offset = (xs_all[i], ys_all[i]), int(offs_all[i])
-            w.mat[i, COLS.slc("message")] = msg
-            w.mat[i, COLS.idx("kind")] = kind
-            w.mat[i, COLS.idx("is_send")] = is_send
-            w.mat[i, COLS.idx("is_receive")] = 1 - is_send
-            w.mat[i, COLS.idx("offset")] = offset
-            w.mat[i, COLS.idx("x6")] = x[6]
-            w.mat[i, COLS.slc("y")] = y
-            w.mat[i, COLS.idx("y6_inv")] = pow(int(y[6]), P - 2, P)
-            rb = word_decompose_np(np.array([HALF - int(y[6])], dtype=np.int64))
-            w.mat[i, COLS.slc("range_b")] = rb[0]
-            y_used = S.sneg(y) if is_send else y
-            slope = S.smul(S.ssub(y_used, acc[1]), S.sinv(S.ssub(x, acc[0])))
-            w.mat[i, COLS.slc("slope")] = slope
-            acc = S.curve_add(acc, (x, y_used))
-            accs[i, :7] = acc[0]
-            accs[i, 7:] = acc[1]
-            w.mat[i, COLS.slc("acc")] = accs[i]
+            msgs = np.array([m for m, _, _ in events], dtype=np.uint32)
+            sends = np.array([s for _, s, _ in events], dtype=np.uint32)
+            xs, ys, offs = S.lift_x_batch(msgs)
+            ys = np.asarray(ys, np.uint32)
+            w.mat[:, COLS.slc("message")] = msgs
+            w.mat[:, COLS.idx("kind")] = [k for _, _, k in events]
+            w.mat[:, COLS.idx("is_send")] = sends
+            w.mat[:, COLS.idx("is_receive")] = 1 - sends
+            w.mat[:, COLS.idx("offset")] = offs
+            w.mat[:, COLS.idx("x6")] = np.asarray(xs)[:, 6]
+            w.mat[:, COLS.slc("y")] = ys
+            w.mat[:, COLS.idx("y6_inv")] = [pow(int(v), P - 2, P) for v in ys[:, 6]]
+            w.mat[:, COLS.slc("range_b")] = word_decompose_np(HALF - ys[:, 6].astype(np.int64))
+            y_used = np.where(sends[:, None] == 1, S.sneg(ys), ys)
+            slopes, accs = _running_sums(S.digest_zero(), xs, y_used)
+            w.mat[:, COLS.slc("slope")] = slopes
+            w.mat[:, COLS.slc("acc")] = accs
         w.set("is_real", np.ones(n))
         mat = pad_to_pow2(w.mat)
         # padding rows carry the dummy curve point (reference
@@ -259,3 +252,61 @@ class GlobalChip(Air):
         t = GlobalChip._s_mul(s7, [px[k] - ox[k] for k in range(7)])
         for k in range(7):
             gate.assert_zero(t[k] - py[k] - oy[k])
+
+
+def _running_sums(start, xs, ys):
+    """The slopes and running sums of adding the points (xs[i], ys[i]), in
+    order, to `start`: row i's slope is that of S.curve_add(acc, point i)
+    and its sum that addition's result. The same field arithmetic as
+    S.curve_add, on Python ints a row at a time (numpy's per-call cost on
+    seven-element vectors made this loop the host's longest trace): a
+    septic product is one product of two big ints, each packing its seven
+    coefficients in 68-bit slots (a coefficient of the product is a sum of
+    at most seven products of two values below 2^31, below 2^65), and a
+    Frobenius map is a sum of seven such ints scaled by the coefficients.
+    Returns ((n, 7) slopes, (n, 14) sums: x then y)."""
+    bits = 68
+    mask = (1 << bits) - 1
+    shifts = [bits * i for i in range(13)]
+
+    def pack(a):
+        return sum(v << sh for v, sh in zip(a, shifts))
+
+    def mul(a, b):
+        c = pack(a) * pack(b)
+        raw = [(c >> sh) & mask for sh in shifts]
+        for k in range(12, 6, -1):  # z^7 = 8 - 2z
+            raw[k - 7] += 8 * raw[k]
+            raw[k - 6] -= 2 * raw[k]
+        return [v % P for v in raw[:7]]
+
+    S.frobenius(S.sone(), 1)  # builds S._FROB_MATS once
+    frob = {k: [pack(row) for row in S._FROB_MATS[k].astype(np.int64).tolist()] for k in (1, 2)}
+
+    def frobenius(a, k):  # sum_i a_i * (row i of the map)
+        c = sum(v * row for v, row in zip(a, frob[k]))
+        return [((c >> sh) & mask) % P for sh in shifts[:7]]
+
+    def inv(a):  # S.sinv: a^(r - 1) / N(a), r = (p^7 - 1) / (p - 1)
+        base = mul(frobenius(a, 1), frobenius(a, 2))
+        base_p2 = frobenius(base, 2)
+        base_p4 = frobenius(base_p2, 2)
+        pow_r_1 = mul(mul(base_p4, base_p2), base)
+        norm_inv = pow(mul(pow_r_1, a)[0], P - 2, P)
+        return [v * norm_inv % P for v in pow_r_1]
+
+    n = len(xs)
+    slopes = np.zeros((n, 7), dtype=np.uint32)
+    accs = np.zeros((n, 14), dtype=np.uint32)
+    x1, y1 = [int(v) for v in start[0]], [int(v) for v in start[1]]
+    for i, (x2, y2) in enumerate(zip(np.asarray(xs).tolist(), np.asarray(ys).tolist())):
+        slope = mul([(b - a) % P for a, b in zip(y1, y2)],
+                    inv([(b - a) % P for a, b in zip(x1, x2)]))
+        sq = mul(slope, slope)
+        x3 = [(s - a - b) % P for s, a, b in zip(sq, x1, x2)]
+        y3 = [(v - a) % P for v, a in zip(mul(slope, [(a - b) % P for a, b in zip(x1, x3)]), y1)]
+        slopes[i] = slope
+        accs[i, :7] = x3
+        accs[i, 7:] = y3
+        x1, y1 = x3, y3
+    return slopes, accs

@@ -19,6 +19,8 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -94,27 +96,50 @@ def unflatten_fetch(flat_np, meta):
 
 
 _PK_LOCK = threading.Lock()
+# The device data of proving keys, (the preprocessed commit's prover data,
+# the preprocessed traces on the device), by (key, device), the least
+# recently used first. A key is held weakly: when it dies its entries go,
+# and with them the device memory they hold. A live key evicted here is
+# committed again on its next use. The bound is the most keys that one
+# compress or one composition proves under, with room to spare: a compress
+# proves under a lift key for each shard shape and a join key for each shape
+# of pair in its tree, then shrink's key. Counted on the CPU: the compress of
+# a two-shard fibonacci proof uses three keys (four with the shrink), that
+# of the eight-shard proof of tests/test_torch_memory_split.py (five
+# execution shards, three memory shards) seven (eight with the shrink), and
+# chip_smoke.compose, a composition of two one-shard trees, six. A
+# composition over the eight-shard tree adds the deferred leaf's and the
+# attach's keys: ten. Twelve holds all of them, so that no key is evicted
+# while its tree still proves under it.
+_DEVICE_KEYS_MAX = 12
+_DEVICE_KEYS: OrderedDict = OrderedDict()  # (id(pk), device) -> (weakref to pk, data)
 
 
 def device_pk(machine, pk, device):
-    """Device commit of the preprocessed traces, cached on the pk per
-    device; raises unless it reproduces the host pk.commit. Threads that
-    prove under one pk at once (same-shaped recursion proofs share their
-    keys) commit it once: the cache fills under a lock."""
+    """Device commit of the preprocessed traces, kept per (key, device) in
+    the bounded table above; raises unless it reproduces the host
+    pk.commit. Threads that prove under one pk at once (same-shaped
+    recursion proofs share their keys) commit it once: the table fills
+    under a lock."""
     with _PK_LOCK:
         return _device_pk(machine, pk, torch.device(device))
 
 
+def device_keys() -> list:
+    """The (key, device) pairs whose device data the table holds, the least
+    recently used first."""
+    with _PK_LOCK:
+        return [(ref(), dev) for (_id, dev), (ref, _data) in _DEVICE_KEYS.items()]
+
+
 def _device_pk(machine, pk, device):
-    cache = getattr(pk, "_torch_data_cache", None)
-    if cache is None:
-        cache = pk._torch_data_cache = {}
-    hit = cache.get(device)
-    if hit is not None:
-        return hit
     if pk.data is None:
-        cache[device] = (None, {})
-        return cache[device]
+        return None, {}
+    slot = (id(pk), device)
+    hit = _DEVICE_KEYS.get(slot)
+    if hit is not None and hit[0]() is pk:
+        _DEVICE_KEYS.move_to_end(slot)
+        return hit[1]
     doms_mats = []
     prep_dev = {}
     for name, dom, _dims, _lo in pk.chip_information:
@@ -124,8 +149,13 @@ def _device_pk(machine, pk, device):
     commit, data = tpcs.commit(doms_mats, machine.config.fri.log_blowup)
     if not np.array_equal(tf.to_host(commit), np.asarray(pk.commit, np.uint32)):
         raise RuntimeError("device preprocessed commit does not match host pk")
-    cache[device] = (data, prep_dev)
-    return cache[device]
+    # the callback runs when pk dies; it drops this entry if it is still here
+    ref = weakref.ref(pk, lambda _ref, slot=slot: _DEVICE_KEYS.pop(slot, None))
+    _DEVICE_KEYS[slot] = (ref, (data, prep_dev))
+    _DEVICE_KEYS.move_to_end(slot)
+    while len(_DEVICE_KEYS) > _DEVICE_KEYS_MAX:
+        _DEVICE_KEYS.popitem(last=False)
+    return data, prep_dev
 
 
 # ---------------------------------------------------------------------------
