@@ -195,6 +195,7 @@ import time
 import numpy as np
 import torch
 
+from ziren_tpu_torch import trace
 from ziren_tpu_torch.device import require_cuda
 
 KERNEL_SOURCE = "ziren_tpu_torch/csrc/poseidon2.cu"
@@ -851,37 +852,20 @@ def busy_share(fs) -> None:
 
 
 class _TraceGenClock:
-    """Host seconds inside each chip's generate_dependencies and
-    generate_trace while it is installed on a machine's chips (the shards'
-    trace generation runs in threads, whose seconds overlap)."""
+    """Host seconds by chip in trace generation while it is open, from the
+    program's own per-chip spans (`tracegen.deps`: synthetic events and
+    dependencies; `tracegen.trace`: the trace; ziren_tpu_torch/trace.py).
+    The shards' trace generation runs in threads, whose seconds overlap."""
 
-    def __init__(self, machine):
-        self.seconds: dict = {}
-        self._lock = threading.Lock()
-        self._airs = [c.air for c in machine.chips]
-        for c in machine.chips:
-            for fn in ("generate_dependencies", "generate_trace"):
-                setattr(c.air, fn, self._timed(c.name, getattr(c.air, fn)))
-
-    def _timed(self, name, fn):
-        def timed(*args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                with self._lock:
-                    self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
-        return timed
+    def __init__(self):
+        self._open = trace.collect()
+        self._rec = self._open.__enter__()
 
     def take(self) -> dict:
-        with self._lock:
-            out, self.seconds = self.seconds, {}
-        return out
+        return trace.seconds_by_chip(self._rec.take())
 
     def remove(self) -> None:
-        for air in self._airs:
-            for fn in ("generate_dependencies", "generate_trace"):
-                air.__dict__.pop(fn, None)
+        self._open.__exit__(None, None, None)
 
 
 @contextlib.contextmanager
@@ -1014,7 +998,7 @@ def phase_precompiles(host_proc) -> dict:
         program, digest = getattr(pp, f"{name}_chain_program")(asm, n)
         machine = mips_machine(core_config())
         pk, vk = machine.setup(program)
-        clock = _TraceGenClock(machine)
+        clock = _TraceGenClock()
         proofs, rates, peaks, all_stats, tracegen = [], [], [], [], []
         # one execution: the eager prove pays the host trace generation and
         # the fused proves take its traces (a second generation of the SHA
@@ -1550,7 +1534,7 @@ def phase_memory(card: str, host_proc) -> dict:
     kinds = [record_kind(r) for r in records]
     assert "memory" in kinds, f"no memory shard at {n_words} words: {kinds}"
 
-    clock = _TraceGenClock(machine)
+    clock = _TraceGenClock()
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

@@ -33,7 +33,15 @@ guest/build.py (include_elf searches ZIREN_ELF_PATH and the caller's root,
 and no fixed directory outside them), and machine/global_chip.py (the
 running sum of the Global chip's trace, the same values, in Python ints
 packed into big ints where the original calls numpy on seven-element
-vectors: the host's longest trace on a memory shard).
+vectors: the host's longest trace on a memory shard). The port's spans
+(trace.py, which the JAX package does not have) mark the stages of the
+prove path; a copied file that holds them imports them from trace.py, and
+is compared with its original after they are taken out (`_untraced`): a
+`with span(...)` gives way to its body, a span's `set` goes, and a pool's
+`carried(fn)` is `fn`. Two functions hold more: the executor's run() and
+run_sharded() close the pc trace file when they end, and stark/shape.py's
+_gen_traces times each chip's trace in a loop where the original builds a
+list in one expression.
 """
 
 import ast
@@ -55,6 +63,8 @@ OWN = {"__init__.py", "ops/__init__.py", "stark/__init__.py", "stark/backend.py"
 BY_DESIGN = {
     "stark/machine.py": {"StarkMachine.prove", "prove"},
     "machine/mips.py": {"prove_program", "prove_program_checkpointed"},
+    "executor/executor.py": {"Executor.run", "Executor.run_sharded"},
+    "stark/shape.py": {"_gen_traces"},
     "recursion/machine.py": {"prove_recursion"},
     "recursion/pipeline.py": {"_prove_cached", "lift", "join", "compress", "shrink",
                               "wrap_bn254"},
@@ -95,6 +105,50 @@ WORDING = {"executor/asm.py": (r"precompile \w+:", "precompile caller:"),
            # an import line in a docstring, spelled out as a user types it
            "verifier/__init__.py": (r"from \.\.verifier import Groth16Verifier",
                                     "from ziren_tpu_torch.verifier import Groth16Verifier")}
+
+
+class _Untraced(ast.NodeTransformer):
+    """Takes the port's spans out of a module's tree (see the docstring)."""
+
+    def __init__(self):
+        self.names = set()  # what a span is bound to by `with span(...) as name`
+
+    @staticmethod
+    def _is(node, fn):
+        return isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and \
+            node.func.id == fn
+
+    def visit_With(self, node):
+        keep = []
+        for item in node.items:
+            if not self._is(item.context_expr, "span"):
+                keep.append(item)
+            elif isinstance(item.optional_vars, ast.Name):
+                self.names.add(item.optional_vars.id)
+        self.generic_visit(node)
+        if keep:
+            node.items = keep
+            return node
+        return node.body
+
+    def visit_Expr(self, node):
+        call = node.value
+        if (isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute)
+                and call.func.attr == "set" and isinstance(call.func.value, ast.Name)
+                and call.func.value.id in self.names):
+            return None
+        return self.generic_visit(node)
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        if self._is(node, "carried") and len(node.args) == 1 and not node.keywords:
+            return node.args[0]
+        return node
+
+
+def _untraced(text):
+    """The module's top-level statements, the port's spans taken out."""
+    return _Untraced().visit(ast.parse(text)).body
 
 
 def _copied():
@@ -163,7 +217,7 @@ def test_copied_module_matches_original(rel):
 
     def defs(text):
         out = {}
-        for n in ast.parse(text).body:
+        for n in _untraced(text):
             if not isinstance(n, (ast.FunctionDef, ast.ClassDef)):
                 continue
             if any(s.startswith(n.name + ".") for s in skip):  # a class, method by method
@@ -190,7 +244,8 @@ def test_copied_module_matches_original(rel):
                     and not (isinstance(n, ast.Assign) and isinstance(n.targets[0], ast.Name)
                              and n.targets[0].id in OWN_ASSIGNS.get(rel, ()))
                     and not (isinstance(n, ast.Import)
-                             and {a.name for a in n.names} <= OWN_IMPORTS.get(rel, set()))]
+                             and {a.name for a in n.names} <= OWN_IMPORTS.get(rel, set()))
+                    and not (isinstance(n, ast.ImportFrom) and n.module == "trace")]
 
         assert rest(got) == rest(want)
     if rel.startswith("recursion/"):

@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax():
               "stark.sharded", "examples", "examples.precompiles", "examples.network_prover",
               "examples.prove_guest", "tools.bench_prove", "tools.profile_prove",
               "tools.profile_device", "tools.device_probe", "tools.groth16_wrap",
-              "tools.plonk_wrap", "tools.engine_air", "tools.bench", "tools.memory_programs"):
+              "tools.plonk_wrap", "tools.engine_air", "tools.bench", "tools.memory_programs",
+              "trace"):
         assert "ziren_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

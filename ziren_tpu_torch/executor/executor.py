@@ -35,6 +35,7 @@ from .opcode import (
 )
 from .program import NUM_REGISTERS, REG_A0, REG_A1, REG_V0, sign_extend
 from .record import ExecutionRecord
+from ..trace import span
 
 M32 = 0xFFFFFFFF
 
@@ -558,41 +559,54 @@ class Executor:
 
     def run(self):
         self.shard_start_pc = self.pc
-        while not self.execute_cycle():
-            pass
-        self.postprocess()
+        try:
+            while not self.execute_cycle():
+                pass
+            self.postprocess()
+        finally:
+            if self._trace_buf is not None:  # the pc trace is whole once run returns
+                self._trace_buf.close()
+                self._trace_buf = None
         return self.record
 
     def run_sharded(self) -> list:
         """Execute and return the list of shard records."""
         assert self.shard_size, "run_sharded requires shard_size"
-        self.shard_start_pc = self.pc
-        while not self.execute_cycle():
-            pass
-        self._bump_shard()  # close the final shard
-        records = self.records
-        # memory init/finalize events live in the last record
-        last = records[-1]
-        for addr, init_value in sorted(self.touched.items()):
-            rec = self.memory[addr]
-            last.mem_init.append((addr, init_value))
-            last.mem_final.append((addr, rec[2], rec[1], rec[0]))
-        # every shard shares the final committed digest
-        digest = list(self.committed_values[:8]) + [0] * max(
-            0, 8 - len(self.committed_values)
-        )
-        deferred = list(self.deferred_digest[:8]) + [0] * max(
-            0, 8 - len(self.deferred_digest)
-        )
-        for rec in records:
-            rec.public_values.committed_value_digest = list(digest)
-            rec.public_values.deferred_proofs_digest = list(deferred)
-            rec.public_values.exit_code = self.exit_code
-        # deferred-event split: move large init/finalize sets into
-        # standalone memory shards + populate the addr-bits pv chain
-        from .split import finalize_memory
+        with span("executor") as sp:
+            try:
+                self.shard_start_pc = self.pc
+                while not self.execute_cycle():
+                    pass
+                self._bump_shard()  # close the final shard
+                records = self.records
+                # memory init/finalize events live in the last record
+                last = records[-1]
+                for addr, init_value in sorted(self.touched.items()):
+                    rec = self.memory[addr]
+                    last.mem_init.append((addr, init_value))
+                    last.mem_final.append((addr, rec[2], rec[1], rec[0]))
+                # every shard shares the final committed digest
+                digest = list(self.committed_values[:8]) + [0] * max(
+                    0, 8 - len(self.committed_values)
+                )
+                deferred = list(self.deferred_digest[:8]) + [0] * max(
+                    0, 8 - len(self.deferred_digest)
+                )
+                for rec in records:
+                    rec.public_values.committed_value_digest = list(digest)
+                    rec.public_values.deferred_proofs_digest = list(deferred)
+                    rec.public_values.exit_code = self.exit_code
+                # deferred-event split: move large init/finalize sets into
+                # standalone memory shards + populate the addr-bits pv chain
+                from .split import finalize_memory
 
-        self.records = finalize_memory(records)
+                with span("executor.finalize"):
+                    self.records = finalize_memory(records)
+            finally:
+                if self._trace_buf is not None:  # whole once run_sharded returns
+                    self._trace_buf.close()
+                    self._trace_buf = None
+            sp.set(cycles=int(self.global_clk), shards=len(self.records))
         return self.records
 
     def postprocess(self):

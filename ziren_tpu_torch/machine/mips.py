@@ -16,6 +16,7 @@ from ..executor import Executor
 from ..executor.record import PROOF_MAX_NUM_PVS
 from ..stark.config import dev_config
 from ..stark.machine import StarkMachine
+from ..trace import span
 from .alu import AddSubChip, BitwiseChip, LtChip
 from .branch import BranchChip
 from .byte import ByteChip
@@ -206,8 +207,10 @@ def execute_sharded(program, shard_size, stdin=None, native=True):
         try:
             from ..executor.native import NativeExecutor
 
-            ex = NativeExecutor(program, stdin=stdin)
-            records = ex.run_sharded(shard_size)
+            with span("executor", native=True) as sp:
+                ex = NativeExecutor(program, stdin=stdin)
+                records = ex.run_sharded(shard_size)
+                sp.set(cycles=int(ex.global_clk), shards=len(records))
             return ex, records
         except (OSError, RuntimeError, subprocess.CalledProcessError):
             pass

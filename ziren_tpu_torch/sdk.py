@@ -34,6 +34,7 @@ from dataclasses import dataclass, field
 from .executor.program import Program, load_elf
 from .machine.mips import execute, mips_machine, verify_mips_proof
 from .stark.config import core_config, dev_config
+from .trace import span
 
 
 class ZirenStdin:
@@ -206,28 +207,29 @@ class ProverClient:
         from .stark.opts import ZirenCoreOpts
 
         buffers = stdin.buffers if stdin else None
-        if shard_size:
-            ex = Executor(pk.program, stdin=buffers, shard_size=shard_size)
-            records = ex.run_sharded()
-        else:
-            # RAM-tiered default shard size (reference ZKMCoreOpts::auto);
-            # short executions still land in a single shard
-            auto = ZirenCoreOpts.auto().shard_size
-            ex, records = execute_sharded(pk.program, auto, stdin=buffers)
-        shapes = None
-        if canonical:
-            from .recursion.shape_universe import (
-                fix_records_to_clusters,
-            )
+        with span("request", call="prove", shard_size=shard_size):
+            if shard_size:
+                ex = Executor(pk.program, stdin=buffers, shard_size=shard_size)
+                records = ex.run_sharded()
+            else:
+                # RAM-tiered default shard size (reference ZKMCoreOpts::auto);
+                # short executions still land in a single shard
+                auto = ZirenCoreOpts.auto().shard_size
+                ex, records = execute_sharded(pk.program, auto, stdin=buffers)
+            shapes = None
+            if canonical:
+                from .recursion.shape_universe import (
+                    fix_records_to_clusters,
+                )
 
-            shapes = fix_records_to_clusters(pk.machine, records)
-        proof = pk.machine.prove(pk.pk, records, device=self._device)
-        out = ZirenProofWithPublicValues(
-            proof,
-            PublicValuesStream(
-                list(ex.committed_values), bytes(ex.public_values_stream)
-            ),
-        )
+                shapes = fix_records_to_clusters(pk.machine, records)
+            proof = pk.machine.prove(pk.pk, records, device=self._device)
+            out = ZirenProofWithPublicValues(
+                proof,
+                PublicValuesStream(
+                    list(ex.committed_values), bytes(ex.public_values_stream)
+                ),
+            )
         out._records = records  # deferred-claim access for compressed_prove
         out._cluster_shapes = shapes
         return out
@@ -263,56 +265,58 @@ class ProverClient:
 
         if canonical is None:
             canonical = _os.environ.get("ZIREN_FIX_CORE_SHAPES") == "1"
-        registry = None
-        core = self.prove(pk, stdin, shard_size=shard_size,
-                          canonical=canonical)
-        if canonical:
-            from .recursion.shape_universe import (
-                build_canonical_registry,
-            )
-
-            registry = build_canonical_registry(
-                pk.machine, pk.vk, core._cluster_shapes,
-                config=self._config,
-            )
-        claims = []
-        for rec in core._records:
-            claims.extend(getattr(rec, "deferred_proof_claims", []))
-        deferred = list(deferred or [])
-        if len(claims) != len(deferred):
-            raise VerificationError(
-                f"guest deferred {len(claims)} proof claims but "
-                f"{len(deferred)} compressed proofs were supplied"
-            )
-        if not claims:
-            return compress(pk.machine, pk.vk, core.proof,
-                            config=self._config, registry=registry,
-                            device=self._device)
-
-        from .recursion.mips_pipeline import RPV_DIGEST
-
-        folded_claims = []
-        for (vkey, pvd_words), side in zip(claims, deferred):
-            sub_rpv = [int(v) for v in side[2].public_values]
-            pv32 = sub_rpv[RPV_DIGEST : RPV_DIGEST + 32]
-            if list(vkey) != D.claim_vk_digest_from_rpv(sub_rpv):
-                raise VerificationError(
-                    "deferred claim vkey does not match the supplied proof"
+        with span("request", call="compressed_prove", shard_size=shard_size,
+                  deferred=len(deferred or ())):
+            registry = None
+            core = self.prove(pk, stdin, shard_size=shard_size,
+                              canonical=canonical)
+            if canonical:
+                from .recursion.shape_universe import (
+                    build_canonical_registry,
                 )
-            if list(pvd_words) != D.pv_digest_bytes_to_words(pv32):
-                raise VerificationError(
-                    "deferred claim pv digest does not match the proof"
+
+                registry = build_canonical_registry(
+                    pk.machine, pk.vk, core._cluster_shapes,
+                    config=self._config,
                 )
-            folded_claims.append((list(vkey), pv32))
-        reconstruct = D.fold_claims(folded_claims)
-        core_root = compress(pk.machine, pk.vk, core.proof,
-                             config=self._config,
-                             reconstruct_digest=reconstruct,
-                             registry=registry, device=self._device)
-        chain = D.deferred_chain(deferred, config=self._config,
-                                 device=self._device)
-        return D.attach_deferred(core_root, chain, config=self._config,
-                                 device=self._device)
+            claims = []
+            for rec in core._records:
+                claims.extend(getattr(rec, "deferred_proof_claims", []))
+            deferred = list(deferred or [])
+            if len(claims) != len(deferred):
+                raise VerificationError(
+                    f"guest deferred {len(claims)} proof claims but "
+                    f"{len(deferred)} compressed proofs were supplied"
+                )
+            if not claims:
+                return compress(pk.machine, pk.vk, core.proof,
+                                config=self._config, registry=registry,
+                                device=self._device)
+
+            from .recursion.mips_pipeline import RPV_DIGEST
+
+            folded_claims = []
+            for (vkey, pvd_words), side in zip(claims, deferred):
+                sub_rpv = [int(v) for v in side[2].public_values]
+                pv32 = sub_rpv[RPV_DIGEST : RPV_DIGEST + 32]
+                if list(vkey) != D.claim_vk_digest_from_rpv(sub_rpv):
+                    raise VerificationError(
+                        "deferred claim vkey does not match the supplied proof"
+                    )
+                if list(pvd_words) != D.pv_digest_bytes_to_words(pv32):
+                    raise VerificationError(
+                        "deferred claim pv digest does not match the proof"
+                    )
+                folded_claims.append((list(vkey), pv32))
+            reconstruct = D.fold_claims(folded_claims)
+            core_root = compress(pk.machine, pk.vk, core.proof,
+                                 config=self._config,
+                                 reconstruct_digest=reconstruct,
+                                 registry=registry, device=self._device)
+            chain = D.deferred_chain(deferred, config=self._config,
+                                     device=self._device)
+            return D.attach_deferred(core_root, chain, config=self._config,
+                                     device=self._device)
 
     def shrink_prove(self, compressed):
         """Re-prove a compressed proof with compact 8-felt digest public

@@ -13,6 +13,7 @@ from __future__ import annotations
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import closing
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -26,6 +27,7 @@ from .prover import prove_shard
 from .shape import fix_shape
 from .tprover import dispatch_shard, finish, shard_traces
 from .verifier import verify_shard, VerificationError
+from ..trace import carried, span
 
 
 @dataclass
@@ -148,7 +150,7 @@ class StarkMachine:
         workers = min(len(records), os.cpu_count() or 4)
         with ThreadPoolExecutor(max_workers=workers) as pool:
             futs = [
-                pool.submit(prove_shard, self, pk, r, base.clone())
+                pool.submit(carried(prove_shard), self, pk, r, base.clone())
                 for r in records
             ]
             return MachineProof([f.result() for f in futs])
@@ -203,28 +205,40 @@ def prove(machine, pk, records, *, device=None, devices=None, fix_shapes: bool =
         if device is not None:
             raise ValueError("pass device or devices, not both")
         mesh = devices if isinstance(devices, Mesh) else Mesh(devices, "shard")
-        members = mesh.members
+        members, path = mesh.members, "sharded"
     else:
         device = resolve_device(device)
-        if tfused.enabled():
+        members, path = (Member(0, device),), "fused" if tfused.enabled() else "eager"
+    with span("prove", shards=len(records), path=path):
+        if path == "fused":
             return tfused.prove_shards_fused(machine, pk, records, device=device, stats=stats)
-        members = (Member(0, device),)  # the caller's current stream
-    base = machine.config.challenger()
-    pk.vk.observe_into(base)
-    waits, dispatch_s, dispatches = [], [], []
-    for i, (r, wait) in enumerate(shard_traces(machine, records, fix_shapes)):
-        waits.append(wait)
-        member = members[i % len(members)]
-        t0 = time.perf_counter()
-        with member.scope():
-            dispatches.append((member, dispatch_shard(machine, pk, r, base.clone(),
-                                                      member.device)))
-        dispatch_s.append(time.perf_counter() - t0)
+        base = machine.config.challenger()
+        pk.vk.observe_into(base)
+        waits, dispatch_s, dispatches = [], [], []
+        with closing(shard_traces(machine, records, fix_shapes)) as pending:
+            for i in range(len(records)):
+                member = members[i % len(members)]
+                with span("shard", index=i) as sp:
+                    with span("trace_wait"):
+                        r, wait = next(pending)
+                    waits.append(wait)
+                    t0 = time.perf_counter()
+                    with member.scope():
+                        d = dispatch_shard(machine, pk, r, base.clone(), member.device)
+                    dispatch_s.append(time.perf_counter() - t0)
+                    dispatches.append((member, d))
+                    sp.set(chips=len(d["chips"]), rows=max(t.size for t in d["trace_domains"]))
+                    if path == "sharded":
+                        sp.set(member=member.index)
 
-    t0 = time.perf_counter()
-    fetched = to_host([(member, d["fetch"]) for member, d in dispatches])
-    t1 = time.perf_counter()
-    proofs = [finish(pk, d, got) for (_member, d), got in zip(dispatches, fetched)]
+        t0 = time.perf_counter()
+        with span("fetch"):
+            fetched = to_host([(member, d["fetch"]) for member, d in dispatches])
+        t1 = time.perf_counter()
+        proofs = []
+        for (_member, d), got in zip(dispatches, fetched):
+            with span("assemble"):
+                proofs.append(finish(pk, d, got))
     if stats is not None:
         stats.update(trace_wait_s=waits, dispatch_s=dispatch_s, fetch_s=t1 - t0,
                      assemble_s=time.perf_counter() - t1)

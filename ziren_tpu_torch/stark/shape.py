@@ -19,6 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..machine.layout import fixed_height
+from ..trace import carried, span
 
 
 @dataclass(frozen=True)
@@ -43,7 +44,8 @@ def emit_synthetic(machine, record):
         return
     for c in machine.chips:
         if c.air.included(record):
-            c.air.emit_synthetic(record)
+            with span("tracegen.deps", chip=c.name):
+                c.air.emit_synthetic(record)
     try:
         record._synth_done = True
     except AttributeError:
@@ -52,16 +54,23 @@ def emit_synthetic(machine, record):
 
 def _gen_traces(machine, record):
     """(chip, trace) pairs for every included chip, dependencies emitted."""
-    chips = [c for c in machine.chips if c.air.included(record)]
-    emit_synthetic(machine, record)
-    if not getattr(record, "_deps_done", False):
+    with span("tracegen") as sp:
+        chips = [c for c in machine.chips if c.air.included(record)]
+        sp.set(chips=len(chips))
+        emit_synthetic(machine, record)
+        if not getattr(record, "_deps_done", False):
+            for c in chips:
+                with span("tracegen.deps", chip=c.name):
+                    c.air.generate_dependencies(record, record)
+            try:
+                record._deps_done = True
+            except AttributeError:
+                pass
+        out = []
         for c in chips:
-            c.air.generate_dependencies(record, record)
-        try:
-            record._deps_done = True
-        except AttributeError:
-            pass
-    return [(c, c.air.generate_trace(record, record)) for c in chips]
+            with span("tracegen.trace", chip=c.name):
+                out.append((c, c.air.generate_trace(record, record)))
+        return out
 
 
 def estimate_targets(machine, records, grid: int = 1):
@@ -112,19 +121,22 @@ def generate_fixed(machine, record, targets):
     """Generate this record's traces at the target heights and attach
     them as record._fixed_traces (thread-safe: fixed_height is
     thread-local)."""
-    chips = [c for c in machine.chips if c.air.included(record)]
-    emit_synthetic(machine, record)
-    if not getattr(record, "_deps_done", False):
+    with span("tracegen") as sp:
+        chips = [c for c in machine.chips if c.air.included(record)]
+        sp.set(chips=len(chips))
+        emit_synthetic(machine, record)
+        if not getattr(record, "_deps_done", False):
+            for c in chips:
+                with span("tracegen.deps", chip=c.name):
+                    c.air.generate_dependencies(record, record)
+            try:
+                record._deps_done = True
+            except AttributeError:
+                pass
+        out = []
         for c in chips:
-            c.air.generate_dependencies(record, record)
-        try:
-            record._deps_done = True
-        except AttributeError:
-            pass
-    out = []
-    for c in chips:
-        with fixed_height(targets[c.name]):
-            out.append((c, c.air.generate_trace(record, record)))
+            with fixed_height(targets[c.name]), span("tracegen.trace", chip=c.name):
+                out.append((c, c.air.generate_trace(record, record)))
     record._fixed_traces = out
     return out
 
@@ -154,7 +166,7 @@ def fix_shape(machine, records, grid: int = 1):
         workers = min(len(records), os.cpu_count() or 4)
         with ThreadPoolExecutor(max_workers=workers) as pool:
             per_record = list(
-                pool.map(lambda r: _gen_traces(machine, r), records)
+                pool.map(carried(lambda r: _gen_traces(machine, r)), records)
             )
     else:
         per_record = [_gen_traces(machine, r) for r in records]
@@ -175,7 +187,7 @@ def fix_shape(machine, records, grid: int = 1):
             want = 1 << targets[c.name]
             if t.shape[0] != want:
                 assert t.shape[0] < want, (c.name, t.shape[0], want)
-                with fixed_height(want):
+                with fixed_height(want), span("tracegen.trace", chip=c.name):
                     t = c.air.generate_trace(record, record)
                 assert t.shape[0] == want, c.name
             out.append((c, t))

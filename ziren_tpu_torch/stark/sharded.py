@@ -27,6 +27,7 @@ from ..device import Mesh, to_host
 from . import tfused, tprover
 from .proof import MachineProof
 from .shape import fix_shape
+from ..trace import span
 
 
 def prove_shards_sharded(machine, pk, records, mesh: Mesh | None = None, grid: int = 1,
@@ -42,30 +43,36 @@ def prove_shards_sharded(machine, pk, records, mesh: Mesh | None = None, grid: i
     if mesh is None:
         mesh = Mesh.default("shard")
     assert len(records) >= 1
-    fix_shape(machine, records, grid)
+    with span("prove", shards=len(records), path="sharded"):
+        fix_shape(machine, records, grid)
 
-    shards, call_s, built_now = [], [], []
-    for i, record in enumerate(records):
-        member = mesh[i % len(mesh)]
-        chips, traces, trace_domains, public_values = tprover.shard_layout(machine, record)
+        shards, call_s, built_now = [], [], []
+        for i, record in enumerate(records):
+            member = mesh[i % len(mesh)]
+            with span("shard", index=i, member=member.index) as sp:
+                chips, traces, trace_domains, public_values = tprover.shard_layout(machine, record)
+                sp.set(chips=len(chips), rows=max(t.shape[0] for t in traces))
+                t0 = time.perf_counter()
+                with member.scope():
+                    fs, built, fetch, _events = tfused.get_fused_fn(
+                        machine, pk, chips, trace_domains, traces, public_values, member.device,
+                        member)
+                call_s.append(time.perf_counter() - t0)
+            if built:
+                built_now.append(fs)
+            shards.append((member, fs, fetch, {"chips": chips, "trace_domains": trace_domains,
+                                               "public_values": public_values,
+                                               "fri": machine.config.fri}))
+
         t0 = time.perf_counter()
-        with member.scope():
-            fs, built, fetch, _events = tfused.get_fused_fn(
-                machine, pk, chips, trace_domains, traces, public_values, member.device, member)
-        call_s.append(time.perf_counter() - t0)
-        if built:
-            built_now.append(fs)
-        shards.append((member, fs, fetch, {"chips": chips, "trace_domains": trace_domains,
-                                           "public_values": public_values,
-                                           "fri": machine.config.fri}))
-
-    t0 = time.perf_counter()
-    fetched = to_host([(member, fetch) for member, _fs, fetch, _d in shards])
-    t1 = time.perf_counter()
-    proofs = []
-    for (_member, fs, _fetch, d), got in zip(shards, fetched):
-        d["meta"] = fs.meta
-        proofs.append(tprover.finish(pk, d, got))
+        with span("fetch"):
+            fetched = to_host([(member, fetch) for member, _fs, fetch, _d in shards])
+        t1 = time.perf_counter()
+        proofs = []
+        for (_member, fs, _fetch, d), got in zip(shards, fetched):
+            d["meta"] = fs.meta
+            with span("assemble"):
+                proofs.append(tprover.finish(pk, d, got))
     if stats is not None:
         stats.update(
             member=[member.index for member, *_ in shards], call_s=call_s,

@@ -44,6 +44,7 @@ import ctypes
 import os
 import threading
 import time
+from contextlib import closing
 
 import numpy as np
 import torch
@@ -54,6 +55,7 @@ from ..ops.tchallenger import TChallenger
 from . import tfolder, tprover
 from .backend import resolve_device
 from .proof import MachineProof
+from ..trace import span
 
 
 def enabled() -> bool:
@@ -100,11 +102,12 @@ class _FusedShard:
         self.machine, self.pk = machine, pk
         self.chips, self.trace_domains = chips, trace_domains
         self.device = device
-        self.mains = [tf.from_host(t, device) for t in traces]
-        self.pv = tprover.pv_tensor(public_values, device)
-        base = machine.config.challenger()
-        pk.vk.observe_into(base)
-        self.ch = TChallenger.from_host(base, device)
+        with span("upload", bytes=sum(4 * t.size for t in traces)):
+            self.mains = [tf.from_host(t, device) for t in traces]
+            self.pv = tprover.pv_tensor(public_values, device)
+            base = machine.config.challenger()
+            pk.vk.observe_into(base)
+            self.ch = TChallenger.from_host(base, device)
         self.graph = None
         self.fetch = None
         self.meta = None
@@ -127,9 +130,10 @@ class _FusedShard:
         uploaded first by a copy that returns only when it is done."""
         if self.done is not None:
             torch.cuda.current_stream(self.device).wait_event(self.done)
-        for buf, t in zip(self.mains, traces):
-            buf.copy_(tf.from_host(t, self.device))
-        self.pv.copy_(tprover.pv_tensor(public_values, self.device))
+        with span("upload", bytes=sum(4 * t.size for t in traces)):
+            for buf, t in zip(self.mains, traces):
+                buf.copy_(tf.from_host(t, self.device))
+            self.pv.copy_(tprover.pv_tensor(public_values, self.device))
 
     def warm_and_capture(self) -> torch.Tensor:
         """Prove the shard in the buffers eagerly (the warm-up; its fetch
@@ -143,7 +147,7 @@ class _FusedShard:
         # the warm-up has just filled the caches with all of it
         self.keep = (list(tf._CONSTS.values()), list(tfolder._SELECTORS.values()),
                      tprover.device_pk(self.machine, self.pk, self.device))
-        with _CAPTURE_LOCK:
+        with span("fused.capture") as sp, _CAPTURE_LOCK:
             torch.cuda.empty_cache()  # as the capture does first: the pool is what it adds
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             before = torch.cuda.memory_reserved(self.device)
@@ -162,6 +166,7 @@ class _FusedShard:
             torch.cuda.synchronize(self.device)
             self.instantiate_s = time.perf_counter() - t0
             self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+            sp.set(nodes=self.nodes)
         self.graph, self.histogram = graph, hist
         return fetch
 
@@ -170,9 +175,10 @@ class _FusedShard:
         if self.graph is None:
             return self._body()[0], None
         events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        events[0].record()
-        self.graph.replay()
-        events[1].record()
+        with span("fused.replay"):
+            events[0].record()
+            self.graph.replay()
+            events[1].record()
         self.replays += 1
         kernels.credit(self.histogram)
         fetch = self.fetch.clone()  # cloned before the next replay overwrites it
@@ -285,28 +291,36 @@ def prove_shards_fused(machine, pk, records, device=None,
     device = resolve_device(device)
     assert len(records) >= 1
     shards, built_now, waits, call_s, replay_events = [], [], [], [], []
-    for record, wait in tprover.shard_traces(machine, records, fix_shapes=True):
-        chips, traces, trace_domains, public_values = tprover.shard_layout(machine, record)
-        t0 = time.perf_counter()
-        fs, built, fetch, events = get_fused_fn(machine, pk, chips, trace_domains, traces,
-                                                public_values, device)
-        call_s.append(time.perf_counter() - t0)
-        waits.append(wait)
-        if built:
-            built_now.append(fs)
-        if events is not None:
-            replay_events.append(events)
-        shards.append((fs, fetch, {"chips": chips, "trace_domains": trace_domains,
-                                   "public_values": public_values,
-                                   "fri": machine.config.fri}))
+    with closing(tprover.shard_traces(machine, records, fix_shapes=True)) as pending:
+        for i in range(len(records)):
+            with span("shard", index=i) as sp:
+                with span("trace_wait"):
+                    record, wait = next(pending)
+                chips, traces, trace_domains, public_values = tprover.shard_layout(machine,
+                                                                                   record)
+                sp.set(chips=len(chips), rows=max(t.shape[0] for t in traces))
+                t0 = time.perf_counter()
+                fs, built, fetch, events = get_fused_fn(machine, pk, chips, trace_domains,
+                                                        traces, public_values, device)
+                call_s.append(time.perf_counter() - t0)
+                waits.append(wait)
+                if built:
+                    built_now.append(fs)
+                if events is not None:
+                    replay_events.append(events)
+                shards.append((fs, fetch, {"chips": chips, "trace_domains": trace_domains,
+                                           "public_values": public_values,
+                                           "fri": machine.config.fri}))
 
     t0 = time.perf_counter()
-    fetched = torch.cat([fetch for _fs, fetch, _d in shards]).cpu().numpy()
+    with span("fetch"):
+        fetched = torch.cat([fetch for _fs, fetch, _d in shards]).cpu().numpy()
     t1 = time.perf_counter()
     proofs, off = [], 0
     for fs, fetch, d in shards:
         d["meta"] = fs.meta
-        proofs.append(tprover.finish(pk, d, fetched[off : off + fetch.numel()]))
+        with span("assemble"):
+            proofs.append(tprover.finish(pk, d, fetched[off : off + fetch.numel()]))
         off += fetch.numel()
     if stats is not None:
         stats.update(

@@ -40,6 +40,7 @@ from ..ops import tpcs
 from ..ops.tchallenger import TChallenger
 from . import tfolder
 from .shape import estimate_targets, fix_shape, generate_fixed
+from ..trace import carried, current, span
 
 P = tf.P
 
@@ -121,7 +122,7 @@ def device_pk(machine, pk, device):
     pk.commit. Threads that prove under one pk at once (same-shaped
     recursion proofs share their keys) commit it once: the table fills
     under a lock."""
-    with _PK_LOCK:
+    with span("device_pk"), _PK_LOCK:
         return _device_pk(machine, pk, torch.device(device))
 
 
@@ -134,12 +135,15 @@ def device_keys() -> list:
 
 def _device_pk(machine, pk, device):
     if pk.data is None:
+        current().set(hit=True)  # nothing to commit
         return None, {}
     slot = (id(pk), device)
     hit = _DEVICE_KEYS.get(slot)
     if hit is not None and hit[0]() is pk:
+        current().set(hit=True)
         _DEVICE_KEYS.move_to_end(slot)
         return hit[1]
+    current().set(hit=False)
     doms_mats = []
     prep_dev = {}
     for name, dom, _dims, _lo in pk.chip_information:
@@ -164,23 +168,26 @@ def _device_pk(machine, pk, device):
 
 
 def shard_traces(machine, records, fix_shapes: bool):
-    """Yield (record, seconds waited for its traces) in order, each record's
-    traces generated. fix_shapes pads every shard to one batch-wide shape
-    (stark/shape.py); when the cost model gives the targets without trace
-    generation, shards generate their traces in a thread pool while the
-    caller proves the earlier ones."""
+    """An iterator of (record, seconds waited for its traces), in order,
+    each record's traces generated. fix_shapes pads every shard to one
+    batch-wide shape (stark/shape.py); when the cost model gives the targets
+    without trace generation, shards generate their traces in a thread pool
+    while the caller proves the earlier ones. The pool's work is handed out
+    here, in the caller's span."""
     targets = None
     if fix_shapes and len(records) > 1:
         targets = estimate_targets(machine, records)
         if targets is None:
             fix_shape(machine, records)
     if targets is None:
-        for r in records:
-            yield r, 0.0
-        return
-    workers = min(len(records), os.cpu_count() or 4)
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        futs = [pool.submit(generate_fixed, machine, r, targets) for r in records]
+        return ((r, 0.0) for r in records)
+    pool = ThreadPoolExecutor(max_workers=min(len(records), os.cpu_count() or 4))
+    futs = [pool.submit(carried(generate_fixed), machine, r, targets) for r in records]
+    return _waited(pool, futs, records)
+
+
+def _waited(pool, futs, records):
+    with pool:
         for fut, r in zip(futs, records):
             t0 = time.perf_counter()
             fut.result()
@@ -191,17 +198,25 @@ def _named_traces(machine, record):
     named = getattr(record, "_fixed_traces", None)
     if named is not None:
         return list(named)
-    chips = [c for c in machine.chips if c.air.included(record)]
-    if not getattr(record, "_deps_done", False):
+    with span("tracegen") as sp:
+        chips = [c for c in machine.chips if c.air.included(record)]
+        sp.set(chips=len(chips))
+        if not getattr(record, "_deps_done", False):
+            for c in chips:
+                with span("tracegen.deps", chip=c.name):
+                    c.air.emit_synthetic(record)
+            for c in chips:
+                with span("tracegen.deps", chip=c.name):
+                    c.air.generate_dependencies(record, record)
+            try:
+                record._deps_done = True
+            except AttributeError:
+                pass
+        out = []
         for c in chips:
-            c.air.emit_synthetic(record)
-        for c in chips:
-            c.air.generate_dependencies(record, record)
-        try:
-            record._deps_done = True
-        except AttributeError:
-            pass
-    return [(c, c.air.generate_trace(record, record)) for c in chips]
+            with span("tracegen.trace", chip=c.name):
+                out.append((c, c.air.generate_trace(record, record)))
+        return out
 
 
 def shard_layout(machine, record):
@@ -230,9 +245,10 @@ def dispatch_shard(machine, pk, record, challenger, device):
     device. `challenger` is the post-vk host challenger clone."""
     device = torch.device(device)
     chips, traces, trace_domains, public_values = shard_layout(machine, record)
-    mains = [tf.from_host(t, device) for t in traces]
-    pv = pv_tensor(public_values, device)
-    ch = TChallenger.from_host(challenger, device)
+    with span("upload", bytes=sum(4 * t.size for t in traces)):
+        mains = [tf.from_host(t, device) for t in traces]
+        pv = pv_tensor(public_values, device)
+        ch = TChallenger.from_host(challenger, device)
     fetch, meta = prove_body(machine, pk, chips, trace_domains, mains, pv, ch)
     return {"fetch": fetch, "meta": meta, "chips": chips, "trace_domains": trace_domains,
             "public_values": public_values, "fri": machine.config.fri}
@@ -251,130 +267,134 @@ def prove_body(machine, pk, chips, trace_domains, mains, pv, ch):
     log_blowup = fri.log_blowup
 
     prep_data, prep_dev = device_pk(machine, pk, device)
-    main_commit, main_data = tpcs.commit(list(zip(trace_domains, mains)), log_blowup)
+    with span("body.commit_main"):
+        main_commit, main_data = tpcs.commit(list(zip(trace_domains, mains)), log_blowup)
 
-    ch.observe_vec(pv)
-    ch.observe_vec(main_commit)
-    alpha = ch.sample_ext()
-    beta = ch.sample_ext()
+        ch.observe_vec(pv)
+        ch.observe_vec(main_commit)
+        alpha = ch.sample_ext()
+        beta = ch.sample_ext()
 
-    pv_folded = pv % P  # the transcript takes the words as given, the folders reduced
-    perm_flats, cumsums = [], []
-    for chip, main in zip(chips, mains):
-        flat, cum = tfolder.perm_trace(
-            chip, main, prep_dev.get(chip.name), pv_folded, alpha, beta
+    with span("body.perm"):
+        pv_folded = pv % P  # the transcript takes the words as given, the folders reduced
+        perm_flats, cumsums = [], []
+        for chip, main in zip(chips, mains):
+            flat, cum = tfolder.perm_trace(
+                chip, main, prep_dev.get(chip.name), pv_folded, alpha, beta
+            )
+            perm_flats.append(flat)
+            cumsums.append(cum)
+        perm_commit, perm_data = tpcs.commit(
+            list(zip(trace_domains, perm_flats)), log_blowup
         )
-        perm_flats.append(flat)
-        cumsums.append(cum)
-    perm_commit, perm_data = tpcs.commit(
-        list(zip(trace_domains, perm_flats)), log_blowup
-    )
-    ch.observe_vec(perm_commit)
+        ch.observe_vec(perm_commit)
 
-    # a Global chip's sum is the last row's last 14 columns of its trace
-    global_sums = []
-    for chip, main, cum in zip(chips, mains, cumsums):
-        if chip.commit_scope.name == "Global":
-            gsum = main[-1, -14:]
-        else:
-            gsum = torch.zeros(14, dtype=torch.int64, device=device)
-        global_sums.append(gsum)
-        ch.observe_vec(cum)
-        ch.observe_vec(gsum)
+        # a Global chip's sum is the last row's last 14 columns of its trace
+        global_sums = []
+        for chip, main, cum in zip(chips, mains, cumsums):
+            if chip.commit_scope.name == "Global":
+                gsum = main[-1, -14:]
+            else:
+                gsum = torch.zeros(14, dtype=torch.int64, device=device)
+            global_sums.append(gsum)
+            ch.observe_vec(cum)
+            ch.observe_vec(gsum)
 
-    alpha_q = ch.sample_ext()
+        alpha_q = ch.sample_ext()
 
-    quotient_domains = [
-        d.create_disjoint_domain(1 << (d.log_n + c.log_quotient_degree))
-        for d, c in zip(trace_domains, chips)
-    ]
-    # one shared alpha-power table; each chip uses its tail
-    max_nc = max((c.num_constraints for c in chips), default=1)
-    apows_all = tpcs.epowers_rev(alpha_q, max_nc)
-    q_domains, q_chunks = [], []
-    for i, (chip, tdom, qdom) in enumerate(zip(chips, trace_domains, quotient_domains)):
-        assert chip.log_quotient_degree <= log_blowup
-        qn = qdom.size
-        prep_idx = pk.chip_ordering.get(chip.name)
-        if prep_idx is not None:
-            prep_q = tpcs.evals_on_domain(prep_data, prep_idx, qdom)
-        else:
-            prep_q = torch.zeros((qn, 0), dtype=torch.int64, device=device)
-        sels = tfolder.selectors_on_coset(
-            tdom.log_n, tdom.shift, qdom.log_n, qdom.shift, device
+    with span("body.quotient"):
+        quotient_domains = [
+            d.create_disjoint_domain(1 << (d.log_n + c.log_quotient_degree))
+            for d, c in zip(trace_domains, chips)
+        ]
+        # one shared alpha-power table; each chip uses its tail
+        max_nc = max((c.num_constraints for c in chips), default=1)
+        apows_all = tpcs.epowers_rev(alpha_q, max_nc)
+        q_domains, q_chunks = [], []
+        for i, (chip, tdom, qdom) in enumerate(zip(chips, trace_domains, quotient_domains)):
+            assert chip.log_quotient_degree <= log_blowup
+            qn = qdom.size
+            prep_idx = pk.chip_ordering.get(chip.name)
+            if prep_idx is not None:
+                prep_q = tpcs.evals_on_domain(prep_data, prep_idx, qdom)
+            else:
+                prep_q = torch.zeros((qn, 0), dtype=torch.int64, device=device)
+            sels = tfolder.selectors_on_coset(
+                tdom.log_n, tdom.shift, qdom.log_n, qdom.shift, device
+            )
+            quotient = tfolder.quotient(
+                chip,
+                qn // tdom.size,
+                prep_q,
+                tpcs.evals_on_domain(main_data, i, qdom),
+                tpcs.evals_on_domain(perm_data, i, qdom),
+                sels,
+                pv_folded,
+                apows_all,
+                (alpha, beta),
+                cumsums[i],
+                global_sums[i],
+            )
+            for j, sub_dom in enumerate(qdom.split_domains(chip.quotient_degree)):
+                q_domains.append(sub_dom)
+                q_chunks.append(quotient[j :: chip.quotient_degree])
+
+        quotient_commit, quotient_data = tpcs.commit(
+            list(zip(q_domains, q_chunks)), log_blowup
         )
-        quotient = tfolder.quotient(
-            chip,
-            qn // tdom.size,
-            prep_q,
-            tpcs.evals_on_domain(main_data, i, qdom),
-            tpcs.evals_on_domain(perm_data, i, qdom),
-            sels,
-            pv_folded,
-            apows_all,
-            (alpha, beta),
-            cumsums[i],
-            global_sums[i],
-        )
-        for j, sub_dom in enumerate(qdom.split_domains(chip.quotient_degree)):
-            q_domains.append(sub_dom)
-            q_chunks.append(quotient[j :: chip.quotient_degree])
+        ch.observe_vec(quotient_commit)
 
-    quotient_commit, quotient_data = tpcs.commit(
-        list(zip(q_domains, q_chunks)), log_blowup
-    )
-    ch.observe_vec(quotient_commit)
+        zeta = ch.sample_ext()
 
-    zeta = ch.sample_ext()
+    with span("body.open"):
+        # opening points, structurally tagged so equal points share work
+        # (zeta * g computed once per domain size)
+        next_pts: dict = {}
 
-    # opening points, structurally tagged so equal points share work
-    # (zeta * g computed once per domain size)
-    next_pts: dict = {}
+        def pts_for(dom, local_only):
+            if local_only:
+                return [("z", zeta)]
+            if dom.log_n not in next_pts:
+                next_pts[dom.log_n] = tpcs.next_point(zeta, dom)
+            return [("z", zeta), (("zn", dom.log_n), next_pts[dom.log_n])]
 
-    def pts_for(dom, local_only):
-        if local_only:
-            return [("z", zeta)]
-        if dom.log_n not in next_pts:
-            next_pts[dom.log_n] = tpcs.next_point(zeta, dom)
-        return [("z", zeta), (("zn", dom.log_n), next_pts[dom.log_n])]
+        prep_points = [
+            pts_for(dom, local_only) for _name, dom, _dims, local_only in pk.chip_information
+        ]
+        main_points = [pts_for(d, c.local_only) for c, d in zip(chips, trace_domains)]
+        perm_points = [pts_for(d, False) for d in trace_domains]
+        quotient_points = [[("z", zeta)] for _ in q_chunks]
 
-    prep_points = [
-        pts_for(dom, local_only) for _name, dom, _dims, local_only in pk.chip_information
-    ]
-    main_points = [pts_for(d, c.local_only) for c, d in zip(chips, trace_domains)]
-    perm_points = [pts_for(d, False) for d in trace_domains]
-    quotient_points = [[("z", zeta)] for _ in q_chunks]
-
-    open_rounds = []
-    if prep_data is not None:
-        open_rounds.append((prep_data, prep_points))
-    open_rounds += [
-        (main_data, main_points),
-        (perm_data, perm_points),
-        (quotient_data, quotient_points),
-    ]
-    dev_out = dev_open(fri, log_blowup, open_rounds, ch)
-
-    to_fetch = {
-        "main": main_commit,
-        "perm": perm_commit,
-        "quot": quotient_commit,
-        "cumsums": list(cumsums),
-        "gsums": global_sums,
-        "opened": dev_out["opened_cat"],
-        "fri_commits": list(dev_out["layer_roots"]),
-        "final": dev_out["final"],
-        "pow": dev_out["pow_witness"],
-        "round_rows": [list(rows) for rows in dev_out["round_rows"]],
-        "round_paths": list(dev_out["round_paths"]),
-        "layer_pairs": list(dev_out["layer_pairs"]),
-        "layer_paths": list(dev_out["layer_paths"]),
-    }
-    rounds_meta = [
-        [(data.widths[i], len(pts)) for i, pts in enumerate(points)]
-        for data, points in open_rounds
-    ]
-    fetch_flat, fetch_meta = flatten_fetch(to_fetch)
+        open_rounds = []
+        if prep_data is not None:
+            open_rounds.append((prep_data, prep_points))
+        open_rounds += [
+            (main_data, main_points),
+            (perm_data, perm_points),
+            (quotient_data, quotient_points),
+        ]
+        dev_out = dev_open(fri, log_blowup, open_rounds, ch)
+        # the fetch vector: one concatenation of every leaf
+        to_fetch = {
+            "main": main_commit,
+            "perm": perm_commit,
+            "quot": quotient_commit,
+            "cumsums": list(cumsums),
+            "gsums": global_sums,
+            "opened": dev_out["opened_cat"],
+            "fri_commits": list(dev_out["layer_roots"]),
+            "final": dev_out["final"],
+            "pow": dev_out["pow_witness"],
+            "round_rows": [list(rows) for rows in dev_out["round_rows"]],
+            "round_paths": list(dev_out["round_paths"]),
+            "layer_pairs": list(dev_out["layer_pairs"]),
+            "layer_paths": list(dev_out["layer_paths"]),
+        }
+        rounds_meta = [
+            [(data.widths[i], len(pts)) for i, pts in enumerate(points)]
+            for data, points in open_rounds
+        ]
+        fetch_flat, fetch_meta = flatten_fetch(to_fetch)
     return fetch_flat, {"fetch_meta": fetch_meta, "rounds_meta": rounds_meta,
                         "has_prep": prep_data is not None}
 
