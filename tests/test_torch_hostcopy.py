@@ -33,7 +33,10 @@ guest/build.py (include_elf searches ZIREN_ELF_PATH and the caller's root,
 and no fixed directory outside them), and machine/global_chip.py (the
 running sum of the Global chip's trace, the same values, in Python ints
 packed into big ints where the original calls numpy on seven-element
-vectors: the host's longest trace on a memory shard). The port's spans
+vectors: the host's longest trace on a memory shard). The SHA-256 chips
+(machine/sha_compress.py, machine/sha_extend.py) make the same byte lookups
+and trace rows as arrays over all of a record's events, where the original
+counts and writes one event, round and byte at a time. The port's spans
 (trace.py, which the JAX package does not have) mark the stages of the
 prove path; a copied file that holds them imports them from trace.py, and
 is compared with its original after they are taken out (`_untraced`): a
@@ -80,6 +83,14 @@ BY_DESIGN = {
     "__main__.py": {"_client", "_scaffold_guest", "main"},
     "guest/build.py": {"include_elf"},
     "machine/global_chip.py": {"GlobalChip.generate_trace", "_running_sums"},
+    "machine/sha_compress.py": {"ShaCompressChip.generate_dependencies",
+                                "ShaCompressChip.generate_trace",
+                                "ShaCompressChip._round_states",
+                                "ShaCompressChip._fill_carries",
+                                "ShaCompressChip._fill_one_access",
+                                "ShaCompressChip._event_arrays",
+                                "ShaCompressChip._access_diffs"},
+    "machine/sha_extend.py": {"ShaExtendChip.generate_dependencies"},
 }
 # by-design files whose module docstring names the port, and the
 # module-level names that the port adds or gives another value

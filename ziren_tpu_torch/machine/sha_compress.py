@@ -70,202 +70,156 @@ class ShaCompressChip(Air):
         return bool(self._events(record))
 
     @staticmethod
-    def _round_states(ev):
-        """Returns the 64 round-input states + final output words."""
+    def _event_arrays(events):
+        """The events' fields and accesses as int64 arrays: shard, clk, w_ptr,
+        h_ptr (E,); h_reads (E, 8, 4) and w_reads (E, 64, 4), each access
+        (addr, value, prev_clk, prev_shard); h_writes (E, 8, 5), (addr,
+        prev_value, prev_clk, prev_shard, value)."""
+        return {key: np.array([ev[key] for ev in events], dtype=np.int64)
+                for key in ("shard", "clk", "w_ptr", "h_ptr", "h_reads", "w_reads",
+                            "h_writes")}
+
+    @staticmethod
+    def _round_states(hs, ws):
+        """The 64 round-input states of every event, (E, 64, 8), from the
+        initial words hs (E, 8) and the schedules ws (E, 64), and each round's
+        S1, ch, temp1, S0 and maj, (5, E, 64). The rounds run in turn, each
+        over all events."""
         ror = lambda x, r: ((x >> r) | (x << (32 - r))) & 0xFFFFFFFF
-        hs = [r[1] for r in ev["h_reads"]]
-        ws = [r[1] for r in ev["w_reads"]]
-        a, b, c, d, e, f, g, h = hs
-        states = []
+        states = np.empty(ws.shape + (8,), dtype=np.int64)
+        rnd = np.empty((5,) + ws.shape, dtype=np.int64)
+        a, b, c, d, e, f, g, h = hs.T
         for i in range(64):
-            states.append((a, b, c, d, e, f, g, h))
+            states[:, i] = np.stack([a, b, c, d, e, f, g, h], axis=1)
             S1 = ror(e, 6) ^ ror(e, 11) ^ ror(e, 25)
             ch = (e & f) ^ ((~e & 0xFFFFFFFF) & g)
-            t1 = (h + S1 + ch + _SHA256_K[i] + ws[i]) & 0xFFFFFFFF
+            t1 = (h + S1 + ch + _SHA256_K[i] + ws[:, i]) & 0xFFFFFFFF
             S0 = ror(a, 2) ^ ror(a, 13) ^ ror(a, 22)
             maj = (a & b) ^ (a & c) ^ (b & c)
-            t2 = (S0 + maj) & 0xFFFFFFFF
+            rnd[:, :, i] = S1, ch, t1, S0, maj
             h, g, f, e, d, c, b, a = (
-                g, f, e, (d + t1) & 0xFFFFFFFF, c, b, a, (t1 + t2) & 0xFFFFFFFF
+                g, f, e, (d + t1) & 0xFFFFFFFF, c, b, a, (t1 + S0 + maj) & 0xFFFFFFFF
             )
-        return states, (a, b, c, d, e, f, g, h)
+        return states, rnd
+
+    @staticmethod
+    def _access_diffs(acc, ts, shard):
+        """compare_clk and the timestamp diff of the accesses acc (..., 4+),
+        made at ts in shard (each broadcast to acc[..., 0])."""
+        prev_clk, prev_shard = acc[..., 2], acc[..., 3]
+        compare = prev_shard == shard
+        return compare, np.where(compare, ts - prev_clk - 1, shard - prev_shard - 1)
 
     def generate_dependencies(self, record, output):
         events = self._events(record)
         if not events:
             return
-        for ev in events:
-            shard = ev["shard"]
-            states, final = self._round_states(ev)
-            ws = [r[1] for r in ev["w_reads"]]
-            ror = lambda x, rr: ((x >> rr) | (x << (32 - rr))) & 0xFFFFFFFF
-            for i in range(64):
-                a, b_, c, d, e, f, g, h = states[i]
-                S1 = ror(e, 6) ^ ror(e, 11) ^ ror(e, 25)
-                chv = (e & f) ^ ((~e & 0xFFFFFFFF) & g)
-                t1m = (h + S1 + chv + _SHA256_K[i] + ws[i]) & 0xFFFFFFFF
-                count_u8_word(record, word_decompose_np(np.array([t1m], dtype=np.int64)))
-                eb = word_decompose_np(np.array([e, f, g], dtype=np.int64))
-                ab = word_decompose_np(np.array([a, b_, c], dtype=np.int64))
-                for k in range(4):
-                    t1 = eb[0, k] & eb[1, k]
-                    t2 = (255 - eb[0, k]) & eb[2, k]
-                    count(record, B.AND, eb[0, k : k + 1], eb[1, k])
-                    count(record, B.AND, 255 - eb[0, k : k + 1], eb[2, k])
-                    count(record, B.XOR, np.array([t1]), t2)
-                    m1 = ab[0, k] & ab[1, k]
-                    m2 = ab[0, k] & ab[2, k]
-                    m3 = ab[1, k] & ab[2, k]
-                    count(record, B.AND, ab[0, k : k + 1], ab[1, k])
-                    count(record, B.AND, ab[0, k : k + 1], ab[2, k])
-                    count(record, B.AND, ab[1, k : k + 1], ab[2, k])
-                    count(record, B.XOR, np.array([m1 ^ m2]), m3)
-                    count(record, B.XOR, np.array([m1]), m2)
-            # memory diffs
-            for acc_list, ts in (
-                (ev["h_reads"], ev["clk"]),
-                (ev["w_reads"], ev["clk"]),
-                ([x[:4] for x in ev["h_writes"]], ev["clk"] + 1),
-            ):
-                for acc in acc_list:
-                    prev_clk, prev_shard = acc[2], acc[3]
-                    compare = 1 if prev_shard == shard else 0
-                    diff = (ts - prev_clk - 1) if compare else (shard - prev_shard - 1)
-                    count(record, B.U16Range, np.array([diff & 0xFFFF]), 0)
-                    count(record, B.U8Range, np.array([diff >> 16]), 0)
-            for wr in ev["h_writes"]:
-                count_u8_word(record, word_decompose_np(np.array([wr[4]], dtype=np.int64)))
+        ev = self._event_arrays(events)
+        states, (_S1, _ch, t1, _S0, _maj) = self._round_states(
+            ev["h_reads"][..., 1], ev["w_reads"][..., 1])
+        ab, bb, cb, _db, eb, fb, gb, _hb = (
+            states[..., j, None] >> np.arange(0, 32, 8) & 0xFF for j in range(8))
+        ne = 255 - eb
+        m1, m2, m3 = ab & bb, ab & cb, bb & cb
+        # ch and maj: the AND and XOR lookups of every round's four bytes
+        count(record, B.AND, np.concatenate([eb, ne, ab, ab, bb], axis=None),
+              np.concatenate([fb, gb, bb, cb, cb], axis=None))
+        count(record, B.XOR, np.concatenate([eb & fb, m1 ^ m2, m1], axis=None),
+              np.concatenate([ne & gb, m3, m2], axis=None))
+        count_u8_word(record, word_decompose_np(
+            np.concatenate([t1, ev["h_writes"][..., 4]], axis=None)))
+        # memory diffs
+        clk, shard = ev["clk"][:, None], ev["shard"][:, None]
+        diff = np.concatenate([self._access_diffs(ev["h_reads"], clk, shard)[1],
+                               self._access_diffs(ev["w_reads"], clk, shard)[1],
+                               self._access_diffs(ev["h_writes"], clk + 1, shard)[1]],
+                              axis=None)
+        count(record, B.U16Range, diff & 0xFFFF, 0)
+        count(record, B.U8Range, diff >> 16, 0)
 
     def generate_trace(self, record, output):
+        """Every event's 64 rows (row 64 * e + i is round i of event e),
+        filled column by column."""
         events = self._events(record)
         n = 64 * len(events)
         w = COLS.writer(n)
-        row = 0
-        for ev in events:
-            shard = ev["shard"]
-            states, final = self._round_states(ev)
-            hs = [r[1] for r in ev["h_reads"]]
-            for i in range(64):
-                w.mat[row, COLS.idx("shard")] = ev["shard"]
-                w.mat[row, COLS.idx("clk")] = ev["clk"]
-                w.mat[row, COLS.idx("w_ptr")] = ev["w_ptr"]
-                w.mat[row, COLS.idx("h_ptr")] = ev["h_ptr"]
-                w.mat[row, COLS.slc("r").start + i] = 1
-                st = states[i]
-                for nm, v in zip(STATE, st):
-                    w.mat[row, COLS.slc(f"s_{nm}")] = word_decompose_np(
-                        np.array([v], dtype=np.int64)
-                    )[0]
-                for j in range(8):
-                    w.mat[row, COLS.slc(f"hi_{j}")] = word_decompose_np(
-                        np.array([hs[j]], dtype=np.int64)
-                    )[0]
-                a, e = st[0], st[4]
-                for j in range(32):
-                    w.mat[row, COLS.slc("ba").start + j] = (a >> j) & 1
-                    w.mat[row, COLS.slc("be").start + j] = (e >> j) & 1
-                eb = word_decompose_np(np.array([st[4], st[5], st[6]], dtype=np.int64))
-                ab = word_decompose_np(np.array([st[0], st[1], st[2]], dtype=np.int64))
-                for k in range(4):
-                    t1 = eb[0, k] & eb[1, k]
-                    t2 = (255 - eb[0, k]) & eb[2, k]
-                    w.mat[row, COLS.slc("ch_t1").start + k] = t1
-                    w.mat[row, COLS.slc("ch_t2").start + k] = t2
-                    w.mat[row, COLS.slc("ch").start + k] = t1 ^ t2
-                    m1 = ab[0, k] & ab[1, k]
-                    m2 = ab[0, k] & ab[2, k]
-                    m3 = ab[1, k] & ab[2, k]
-                    w.mat[row, COLS.slc("mj_1").start + k] = m1
-                    w.mat[row, COLS.slc("mj_2").start + k] = m2
-                    w.mat[row, COLS.slc("mj_3").start + k] = m3
-                    w.mat[row, COLS.slc("mj_x").start + k] = m1 ^ m2
-                    w.mat[row, COLS.slc("mj").start + k] = m1 ^ m2 ^ m3
-                # sigma bytes and the temp1 byte adder
-                ror = lambda x, r: ((x >> r) | (x << (32 - r))) & 0xFFFFFFFF
-                S1 = ror(e, 6) ^ ror(e, 11) ^ ror(e, 25)
-                ch = (e & st[5]) ^ ((~e & 0xFFFFFFFF) & st[6])
-                wv = ev["w_reads"][i][1]
-                S0 = ror(a, 2) ^ ror(a, 13) ^ ror(a, 22)
-                maj = (a & st[1]) ^ (a & st[2]) ^ (st[1] & st[2])
-                t1m = (st[7] + S1 + ch + _SHA256_K[i] + wv) & 0xFFFFFFFF
-                for k in range(4):
-                    w.mat[row, COLS.slc("s0B").start + k] = (S0 >> (8 * k)) & 0xFF
-                    w.mat[row, COLS.slc("s1B").start + k] = (S1 >> (8 * k)) & 0xFF
-                    w.mat[row, COLS.slc("t1B").start + k] = (t1m >> (8 * k)) & 0xFF
-                self._fill_carries(w, row, "t1c", [st[7], S1, ch, _SHA256_K[i], wv], 3)
-                if i < 63:
-                    self._fill_carries(w, row, "ac", [t1m, S0, maj], 3)
-                    self._fill_carries(w, row, "ec", [st[3], t1m], 2)
-                else:
-                    # finalize carries: a-out + h_init and e-out + h_init
-                    a_out = (t1m + S0 + maj) & 0xFFFFFFFF
-                    e_out = (st[3] + t1m) & 0xFFFFFFFF
-                    self._fill_carries(w, row, "ac", [t1m, S0, maj, hs[0]], 3)
-                    self._fill_carries(w, row, "ec", [st[3], t1m, hs[4]], 2)
-                    # six shifted words: out + h_init, 1-bit carries per byte
-                    shifted = [st[0], st[1], st[2], st[4], st[5], st[6]]
-                    his = [hs[1], hs[2], hs[3], hs[5], hs[6], hs[7]]
-                    for jj in range(6):
-                        cur = 0
-                        for k in range(4):
-                            bs = (
-                                ((shifted[jj] >> (8 * k)) & 0xFF)
-                                + ((his[jj] >> (8 * k)) & 0xFF)
-                                + cur
-                            )
-                            cur = bs >> 8
-                            w.mat[row, COLS.slc("wc").start + 4 * jj + k] = cur
-                row += 1
-            r63 = row - 1
-            # memory access cols
-            base = row - 64
-            for j in range(8):
-                rd = ev["h_reads"][j]
-                self._fill_one_access(
-                    w, base, f"hr{j}", rd[0], rd[1], rd[2], rd[3], rd[1],
-                    ev["clk"], shard, active_row=base,
-                )
-                wr = ev["h_writes"][j]
-                self._fill_one_access(
-                    w, r63, f"hw{j}", wr[0], wr[1], wr[2], wr[3], wr[4],
-                    ev["clk"] + 1, shard, active_row=r63,
-                )
-            for i in range(64):
-                rd = ev["w_reads"][i]
-                self._fill_one_access(
-                    w, base + i, "w_acc", rd[0], rd[1], rd[2], rd[3], rd[1],
-                    ev["clk"], shard, active_row=base + i,
-                )
+        if not events:
+            return pad_to_pow2(w.mat, min_height=64)
+        ev = self._event_arrays(events)
+        rows = np.arange(n)
+        per_row = lambda v: np.repeat(v, 64, axis=0)
+        for nm in ("shard", "clk", "w_ptr", "h_ptr"):
+            w.set(nm, per_row(ev[nm]))
+        w.mat[rows, COLS.slc("r").start + rows % 64] = 1
+        hs = ev["h_reads"][..., 1]
+        states, rnd = self._round_states(hs, ev["w_reads"][..., 1])
+        a, b, c, d, e, f, g, h = states.reshape(n, 8).T
+        S1, ch, t1, S0, maj = rnd.reshape(5, n)
+        hi = per_row(hs)
+        for j, v in enumerate((a, b, c, d, e, f, g, h)):
+            w.set_word(f"s_{STATE[j]}", v)
+            w.set_word(f"hi_{j}", hi[:, j])
+        w.set("ba", a[:, None] >> np.arange(32) & 1)
+        w.set("be", e[:, None] >> np.arange(32) & 1)
+        for nm, v in (("ch_t1", e & f), ("ch_t2", ~e & 0xFFFFFFFF & g), ("ch", ch),
+                      ("mj_1", a & b), ("mj_2", a & c), ("mj_3", b & c),
+                      ("mj_x", (a & b) ^ (a & c)), ("mj", maj),
+                      ("s0B", S0), ("s1B", S1), ("t1B", t1)):
+            w.set_word(nm, v)
+        k_i = np.array(_SHA256_K, dtype=np.int64)[rows % 64]
+        self._fill_carries(w, "t1c", [h, S1, ch, k_i, ev["w_reads"][..., 1].reshape(n)], 3)
+        # on the last row, the carries that finalize a and e: the same sums
+        # plus h_init
+        last = rows % 64 == 63
+        self._fill_carries(w, "ac", [t1, S0, maj, np.where(last, hi[:, 0], 0)], 3)
+        self._fill_carries(w, "ec", [d, t1, np.where(last, hi[:, 4], 0)], 2)
+        # the last row's six shifted words: out + h_init, 1-bit carries per byte
+        r63 = rows[last]
+        shifted = states[:, 63][:, [0, 1, 2, 4, 5, 6]]
+        his = hs[:, [1, 2, 3, 5, 6, 7]]
+        cur = 0
+        for k in range(4):
+            cur = ((shifted >> 8 * k & 0xFF) + (his >> 8 * k & 0xFF) + cur) >> 8
+            w.mat[r63[:, None], COLS.slc("wc").start + 4 * np.arange(6) + k] = cur
+        # memory access cols: the h reads on row 0, the h writes on row 63,
+        # a w read on every row
+        for j in range(8):
+            self._fill_one_access(w, r63 - 63, f"hr{j}", ev["h_reads"][:, j], ev["clk"],
+                                  ev["shard"])
+            self._fill_one_access(w, r63, f"hw{j}", ev["h_writes"][:, j], ev["clk"] + 1,
+                                  ev["shard"])
+        self._fill_one_access(w, rows, "w_acc", ev["w_reads"].reshape(n, 4),
+                              per_row(ev["clk"]), per_row(ev["shard"]))
         w.mat[:n, COLS.idx("is_real")] = 1
         return pad_to_pow2(w.mat, min_height=64)
 
     @staticmethod
-    def _fill_carries(w, row, name, terms, bits):
+    def _fill_carries(w, name, terms, bits):
+        """The byte adder's carries of the terms (n,), `bits` bits a byte."""
         cur = 0
         for k in range(4):
             s = sum((t >> (8 * k)) & 0xFF for t in terms) + cur
             cur = s >> 8
             for t in range(bits):
-                w.mat[row, COLS.slc(name).start + bits * k + t] = (cur >> t) & 1
+                w.mat[:, COLS.slc(name).start + bits * k + t] = (cur >> t) & 1
 
-    @staticmethod
-    def _fill_one_access(w, row, prefix, addr, prev_value, prev_clk, prev_shard,
-                         value, ts, shard, active_row):
-        compare = 1 if prev_shard == shard else 0
-        diff = (ts - prev_clk - 1) if compare else (shard - prev_shard - 1)
-        assert 0 <= diff < (1 << 24)
-        w.mat[row, COLS.idx(f"{prefix}_prev_shard")] = prev_shard
-        w.mat[row, COLS.idx(f"{prefix}_prev_clk")] = prev_clk
-        w.mat[row, COLS.idx(f"{prefix}_compare_clk")] = compare
-        w.mat[row, COLS.idx(f"{prefix}_d16")] = diff & 0xFFFF
-        w.mat[row, COLS.idx(f"{prefix}_d8")] = diff >> 16
-        w.mat[row, COLS.slc(f"{prefix}_value")] = word_decompose_np(
-            np.array([value], dtype=np.int64)
-        )[0]
+    @classmethod
+    def _fill_one_access(cls, w, rows, prefix, acc, ts, shard):
+        """One access of each of the given rows: acc (m, 4) are reads (addr,
+        value, prev_clk, prev_shard), (m, 5) writes (addr, prev_value,
+        prev_clk, prev_shard, value), made at ts (m,) in shard (m,)."""
+        compare, diff = cls._access_diffs(acc, ts, shard)
+        assert np.all((0 <= diff) & (diff < (1 << 24)))
+        w.mat[rows, COLS.idx(f"{prefix}_prev_shard")] = acc[:, 3]
+        w.mat[rows, COLS.idx(f"{prefix}_prev_clk")] = acc[:, 2]
+        w.mat[rows, COLS.idx(f"{prefix}_compare_clk")] = compare
+        w.mat[rows, COLS.idx(f"{prefix}_d16")] = diff & 0xFFFF
+        w.mat[rows, COLS.idx(f"{prefix}_d8")] = diff >> 16
         if f"{prefix}_prev_value" in COLS:
-            w.mat[row, COLS.slc(f"{prefix}_prev_value")] = word_decompose_np(
-                np.array([prev_value], dtype=np.int64)
-            )[0]
+            w.mat[rows, COLS.slc(f"{prefix}_prev_value")] = word_decompose_np(acc[:, 1])
+            w.mat[rows, COLS.slc(f"{prefix}_value")] = word_decompose_np(acc[:, 4])
+        else:
+            w.mat[rows, COLS.slc(f"{prefix}_value")] = word_decompose_np(acc[:, 1])
 
     def eval(self, b):
         L = COLS.view(b.main_local)

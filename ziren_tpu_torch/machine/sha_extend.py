@@ -78,16 +78,22 @@ class ShaExtendChip(Air):
         events = self._events(record)
         if not events:
             return
-        for ev in events:
-            clk, shard = ev["clk"], ev["shard"]
-            for acc in ev["reads"] + [ev["write"][:4]]:
-                prev_clk, prev_shard = acc[2], acc[3]
-                compare = 1 if prev_shard == shard else 0
-                diff = (clk - prev_clk - 1) if compare else (shard - prev_shard - 1)
-                count(record, B.U16Range, np.array([diff & 0xFFFF]), 0)
-                count(record, B.U8Range, np.array([diff >> 16]), 0)
-            wb = word_decompose_np(np.array([ev["write"][4]], dtype=np.int64))
-            count_u8_word(record, wb)
+        from itertools import chain
+
+        # every event's four reads (addr, value, prev_clk, prev_shard) and its
+        # write (addr, prev_value, prev_clk, prev_shard, value)
+        n = len(events)
+        reads = np.fromiter(chain.from_iterable(chain.from_iterable(
+            ev["reads"] for ev in events)), np.int64, 16 * n).reshape(n, 4, 4)
+        write = np.array([ev["write"] for ev in events], dtype=np.int64)
+        acc = np.concatenate([reads, write[:, None, :4]], axis=1)
+        clk = np.array([ev["clk"] for ev in events], dtype=np.int64)[:, None]
+        shard = np.array([ev["shard"] for ev in events], dtype=np.int64)[:, None]
+        prev_clk, prev_shard = acc[..., 2], acc[..., 3]
+        diff = np.where(prev_shard == shard, clk - prev_clk - 1, shard - prev_shard - 1)
+        count(record, B.U16Range, diff & 0xFFFF, 0)
+        count(record, B.U8Range, diff >> 16, 0)
+        count_u8_word(record, word_decompose_np(write[:, 4]))
 
     def generate_trace(self, record, output):
         events = self._events(record)
