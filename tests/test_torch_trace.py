@@ -5,9 +5,11 @@ ProverClient.prove is one `request` root whose every span carries its id,
 each child inside its parent's interval, with the stages the benchmark's
 readers name (zkbench/attribution.py): the executor, the shard, its trace
 generation by chip, the upload, the device key, the four stages of the
-shard's body, the fetch and the assembly. The pools of the prover hand
-their workers the caller's span; two threads proving at once get requests
-of their own; the proof bytes are the same with and without recording.
+shard's body with each chip's permutation trace and quotient fold, the fetch
+and the assembly; the benchmark's fold readers read them from a hand-made
+run. The pools of the prover hand their workers the caller's span; two
+threads proving at once get requests of their own; the proof bytes are the
+same with and without recording.
 The CUDA graph's capture and replay are on the card only (`cuda`).
 
     python -m pytest -q tests/test_torch_trace.py
@@ -34,7 +36,8 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
 
 STAGES = ("request", "executor", "executor.finalize", "prove", "shard", "trace_wait",
           "tracegen", "tracegen.deps", "tracegen.trace", "upload", "device_pk",
-          "body.commit_main", "body.perm", "body.quotient", "body.open", "fetch", "assemble")
+          "body.commit_main", "body.perm", "perm.trace", "body.quotient", "quotient.fold",
+          "body.open", "fetch", "assemble")
 
 
 def check_tree(spans):
@@ -140,6 +143,109 @@ def test_a_prove_is_one_request_with_every_stage(sdk_proofs):
         assert set(chips) <= {s.attrs["chip"] for s in spans if s.name == kind}, kind
     assert set(trace.seconds_by_chip(spans)) >= set(chips)
     assert pk  # the key outlives the spans that named it
+
+
+def test_a_fold_and_a_perm_trace_a_chip_a_shard(sdk_proofs):
+    """`quotient.fold` (chip, constraints) under `body.quotient` and
+    `perm.trace` (chip) under `body.perm`, one of each for every chip of
+    every shard, in the shard's chip order; the folds take no more than
+    their stage's host time."""
+    pk, _off, on, spans = sdk_proofs
+    by_id = check_tree(spans)
+    machine = pk.machine
+    for name, stage in (("quotient.fold", "body.quotient"), ("perm.trace", "body.perm")):
+        mine = [s for s in spans if s.name == name]
+        stages = [s for s in spans if s.name == stage]
+        assert len(stages) == len(on.proof.shard_proofs)
+        for st, sp in zip(stages, on.proof.shard_proofs):
+            kids = sorted((s for s in mine if s.parent == st.id), key=lambda s: s.t0_ns)
+            assert sorted(s.attrs["chip"] for s in kids) == sorted(sp.chip_names), name
+            assert sum(s.t1_ns - s.t0_ns for s in kids) <= st.t1_ns - st.t0_ns
+        assert all(by_id[s.parent].name == stage for s in mine)
+        if name == "quotient.fold":
+            for s in mine:
+                assert set(s.attrs) == {"chip", "constraints"}
+                assert s.attrs["constraints"] == machine.chip_by_name[s.attrs["chip"]].num_constraints
+                assert s.attrs["constraints"] > 0
+        else:
+            assert all(set(s.attrs) == {"chip"} for s in mine)
+
+
+# (id, parent, name, t0 ms, t1 ms, attrs) of a hand-made request of two
+# shards on one thread, with the fold spans the benchmark's readers read
+FOLD_SPANS = [
+    (1, None, "request", 0, 1000, {}),
+    (2, 1, "prove", 100, 990, {}),
+    (3, 2, "shard", 100, 500, {"index": 0}),
+    (4, 3, "body.perm", 110, 200, {}),
+    (5, 4, "perm.trace", 110, 150, {"chip": "Cpu"}),
+    (6, 3, "body.quotient", 200, 400, {}),
+    (7, 6, "quotient.fold", 210, 300, {"chip": "Cpu", "constraints": 9}),
+    (8, 6, "quotient.fold", 310, 340, {"chip": "Byte", "constraints": 2}),
+    (9, 2, "shard", 500, 900, {"index": 1}),
+    (10, 9, "body.quotient", 600, 800, {}),
+    (11, 10, "quotient.fold", 600, 700, {"chip": "Cpu", "constraints": 9}),
+]
+# device operations (start ms, end ms): two under the first fold, one under
+# the second, one under body.quotient alone, two under the third fold, one
+# under perm.trace
+FOLD_OPS = [(220, 230), (240, 250), (320, 330), (350, 360), (610, 620), (650, 660),
+            (120, 130)]
+
+
+def _fold_run(spans, ops):
+    """A zkbench Run of one request (0 to 1 s) whose window holds `spans`."""
+    from types import SimpleNamespace
+
+    from zkbench import attribution, cells, devtrace
+    from zkbench.harness import Request, Run
+
+    ms = 1_000_000
+
+    class Recorder:
+        def __init__(self, kept):
+            self.kept = kept
+
+        def take(self):
+            out, self.kept = self.kept, []
+            return out
+
+    attribution._recorder = Recorder([
+        SimpleNamespace(id=i, parent=up, request=1, name=n, thread=7, t0_ns=a * ms,
+                        t1_ns=b * ms, attrs=dict(at)) for i, up, n, a, b, at in spans])
+    attribution._window = (None, None)
+    dev = devtrace.DeviceTrace(events=[("k", a * ms, b * ms) for a, b in ops], t0=0,
+                               t1=1000 * ms)
+    cell = cells.Bench().cell("sha3chain-core.prove")
+    return cell, Run(cell, [Request(0, 0.0, 1.0, 0, 1000 * ms)], 0.0, 1.0, [11088],
+                     device=dev)
+
+
+@pytest.mark.parametrize("kept", ["all", "none"])
+def test_the_fold_readers(kept, monkeypatch):
+    """prover.fold_s: 90 + 30 + 100 ms of folds in one request; prover.
+    fold_ops_per_shard: 5 operations under folds over 2 shards. Without fold
+    spans (a port that has none) both read None."""
+    from zkbench import attribution
+
+    monkeypatch.setattr(attribution, "_recorder", None)
+    monkeypatch.setattr(attribution, "_collecting", None)
+    monkeypatch.setattr(attribution, "_window", (None, None))
+    monkeypatch.setattr(attribution, "last_run", None)
+    spans = FOLD_SPANS if kept == "all" else [s for s in FOLD_SPANS if s[2] != "quotient.fold"]
+    cell, run = _fold_run(spans, FOLD_OPS)
+    names = [m["name"] for m in cell.per_layer]
+    assert {"prover.fold_s", "prover.fold_ops_per_shard"} <= set(names)
+    got = {m: cell.reader(m).read(run) for m in ("prover.fold_s", "prover.fold_ops_per_shard")}
+    if kept == "all":
+        assert got["prover.fold_s"] == pytest.approx(0.220)
+        assert got["prover.fold_ops_per_shard"] == 2.5
+    else:
+        assert got == {"prover.fold_s": None, "prover.fold_ops_per_shard": None}
+    monkeypatch.setattr(attribution, "_recorder", None)  # nothing recorded at all
+    monkeypatch.setattr(attribution, "_window", (None, None))
+    assert cell.reader("prover.fold_s").read(run) is None
+    assert cell.reader("prover.fold_ops_per_shard").read(run) is None
 
 
 def test_pool_workers_carry_the_request(tmp_path):

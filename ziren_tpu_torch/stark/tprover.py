@@ -279,9 +279,10 @@ def prove_body(machine, pk, chips, trace_domains, mains, pv, ch):
         pv_folded = pv % P  # the transcript takes the words as given, the folders reduced
         perm_flats, cumsums = [], []
         for chip, main in zip(chips, mains):
-            flat, cum = tfolder.perm_trace(
-                chip, main, prep_dev.get(chip.name), pv_folded, alpha, beta
-            )
+            with span("perm.trace", chip=chip.name):
+                flat, cum = tfolder.perm_trace(
+                    chip, main, prep_dev.get(chip.name), pv_folded, alpha, beta
+                )
             perm_flats.append(flat)
             cumsums.append(cum)
         perm_commit, perm_data = tpcs.commit(
@@ -322,19 +323,22 @@ def prove_body(machine, pk, chips, trace_domains, mains, pv, ch):
             sels = tfolder.selectors_on_coset(
                 tdom.log_n, tdom.shift, qdom.log_n, qdom.shift, device
             )
-            quotient = tfolder.quotient(
-                chip,
-                qn // tdom.size,
-                prep_q,
-                tpcs.evals_on_domain(main_data, i, qdom),
-                tpcs.evals_on_domain(perm_data, i, qdom),
-                sels,
-                pv_folded,
-                apows_all,
-                (alpha, beta),
-                cumsums[i],
-                global_sums[i],
-            )
+            main_q = tpcs.evals_on_domain(main_data, i, qdom)
+            perm_q = tpcs.evals_on_domain(perm_data, i, qdom)
+            with span("quotient.fold", chip=chip.name, constraints=chip.num_constraints):
+                quotient = tfolder.quotient(
+                    chip,
+                    qn // tdom.size,
+                    prep_q,
+                    main_q,
+                    perm_q,
+                    sels,
+                    pv_folded,
+                    apows_all,
+                    (alpha, beta),
+                    cumsums[i],
+                    global_sums[i],
+                )
             for j, sub_dom in enumerate(qdom.split_domains(chip.quotient_degree)):
                 q_domains.append(sub_dom)
                 q_chunks.append(quotient[j :: chip.quotient_degree])
