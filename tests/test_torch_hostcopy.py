@@ -31,9 +31,13 @@ threaded copies of a signed request cannot both pass),
 __main__.py (the program's name, `--device`),
 guest/build.py (include_elf searches ZIREN_ELF_PATH and the caller's root,
 and no fixed directory outside them), and machine/global_chip.py (the
-running sum of the Global chip's trace, the same values, in Python ints
-packed into big ints where the original calls numpy on seven-element
-vectors: the host's longest trace on a memory shard). The SHA-256 chips
+Global chip builds its events as arrays, each source's values split into
+bytes in one call, and lifts them to the curve once a record, where the
+original builds them event by event and lifts them in both of its trace
+methods; its running sum, the same values, is one native call over all rows
+(core/septic_native.py, csrc/septic_sum.cpp), or in Python ints packed into
+big ints where that cannot be built, where the original calls numpy on
+seven-element vectors a row at a time). The SHA-256 chips
 (machine/sha_compress.py, machine/sha_extend.py) make the same byte lookups
 and trace rows as arrays over all of a record's events, where the original
 counts and writes one event, round and byte at a time. The port's spans
@@ -82,7 +86,9 @@ BY_DESIGN = {
     "network/auth.py": {"RequestVerifier.__init__", "RequestVerifier.verify"},
     "__main__.py": {"_client", "_scaffold_guest", "main"},
     "guest/build.py": {"include_elf"},
-    "machine/global_chip.py": {"GlobalChip.generate_trace", "_running_sums"},
+    "machine/global_chip.py": {"GlobalChip._events", "GlobalChip._lifted",
+                               "GlobalChip.generate_dependencies",
+                               "GlobalChip.generate_trace", "_running_sums"},
     "machine/sha_compress.py": {"ShaCompressChip.generate_dependencies",
                                 "ShaCompressChip.generate_trace",
                                 "ShaCompressChip._round_states",

@@ -31,6 +31,8 @@ the imports rewritten; the device layers are ported:
   kernels.py           the hand-written CUDA kernels (csrc/poseidon2.cu):
                        K1 hash_rows, K2 permute, K3 compress_levels, K4 grind
   ops/kplans.py        K3's and K4's launch plans, and their plain executors
+  core/septic_native.py  the Global chip's septic-curve running sum in one
+                       host call (csrc/septic_sum.cpp, built by g++)
   tools/kernel_bench.py  checks and times the kernels on a GPU
 
 Field elements are canonical int64 values in [0, p). Every function takes

@@ -19,6 +19,7 @@ from ..core import septic as S
 from ..executor.opcode import ByteOpcode as B
 from ..stark.chip import Air
 from ..stark.lookup import LookupKind, LookupScope
+from ..trace import current
 from .byte import count, send_byte
 from .layout import Layout, pad_to_pow2, word_decompose_np
 
@@ -50,36 +51,76 @@ class GlobalChip(Air):
     commit_scope = LookupScope.Global
 
     def _events(self, record):
-        """Collect global lookup events in chip-emission order."""
+        """The global lookup events in chip-emission order, as arrays:
+        messages (n, 7), is_send (n,) and kind (n,), all uint32. Each
+        source's values are split into bytes in one call."""
         from ..machine.memory_local import all_local_segments
         from ..machine.syscall_bridge import global_syscall_events
 
-        events = []  # (message7, is_send, kind)
-        for a, init, fin in all_local_segments(record):
-            sh, clk, v = init
-            vb = [int(x) for x in word_decompose_np(np.array([v]))[0]]
-            events.append(([sh, clk, a] + vb, 0, int(LookupKind.Memory)))
-            sh, clk, v = fin
-            vb = [int(x) for x in word_decompose_np(np.array([v]))[0]]
-            events.append(([sh, clk, a] + vb, 1, int(LookupKind.Memory)))
-        events.extend(global_syscall_events(record))
-        for a, v in record.mem_init:
-            vb = [int(x) for x in word_decompose_np(np.array([v]))[0]]
-            events.append(([0, 0, a] + vb, 1, int(LookupKind.Memory)))
-        for a, sh, clk, v in record.mem_final:
-            vb = [int(x) for x in word_decompose_np(np.array([v]))[0]]
-            events.append(([sh, clk, a] + vb, 0, int(LookupKind.Memory)))
-        return events
+        mem = int(LookupKind.Memory)
+        parts = []  # (messages, is_send, kind) of each source, in order
+
+        def memory(heads, values, is_send):
+            n = len(heads)
+            msgs = np.empty((n, 7), dtype=np.uint32)
+            msgs[:, :3] = heads
+            msgs[:, 3:] = word_decompose_np(values)
+            sends = np.empty(n, dtype=np.uint32)
+            sends[:] = is_send
+            parts.append((msgs, sends, np.full(n, mem, np.uint32)))
+
+        segs = all_local_segments(record)
+        if segs:  # each segment's init (a receive), then its final (a send)
+            seg = np.array([(a, *i, *f) for a, i, f in segs], dtype=np.int64).reshape(-1, 7)
+            heads = np.empty((2 * len(seg), 3), dtype=np.int64)
+            heads[0::2] = seg[:, [1, 2, 0]]
+            heads[1::2] = seg[:, [4, 5, 0]]
+            values = np.empty(2 * len(seg), dtype=np.int64)
+            values[0::2], values[1::2] = seg[:, 3], seg[:, 6]
+            memory(heads, values, np.tile(np.array([0, 1], np.uint32), len(seg)))
+        sys_events = global_syscall_events(record)
+        if sys_events:
+            parts.append((np.array([m for m, _, _ in sys_events], dtype=np.uint32),
+                          np.array([s for _, s, _ in sys_events], dtype=np.uint32),
+                          np.array([k for _, _, k in sys_events], dtype=np.uint32)))
+        if record.mem_init:
+            init = np.array(record.mem_init, dtype=np.int64).reshape(-1, 2)
+            heads = np.zeros((len(init), 3), dtype=np.int64)
+            heads[:, 2] = init[:, 0]
+            memory(heads, init[:, 1], 1)
+        if record.mem_final:
+            fin = np.array(record.mem_final, dtype=np.int64).reshape(-1, 4)
+            memory(fin[:, [1, 2, 0]], fin[:, 3], 0)
+        if not parts:
+            return (np.zeros((0, 7), np.uint32), np.zeros(0, np.uint32),
+                    np.zeros(0, np.uint32))
+        return tuple(np.concatenate(col) for col in zip(*parts))
+
+    def _lifted(self, record):
+        """The events (`_events`) and their points (`S.lift_x_batch`): what
+        generate_dependencies kept on the record, or made anew."""
+        kept = getattr(record, "_global_lifted", None)
+        if kept is not None:
+            return kept
+        msgs, sends, kinds = self._events(record)
+        if len(msgs):
+            xs, ys, offs = S.lift_x_batch(msgs)
+        else:
+            xs, ys, offs = msgs, msgs, np.zeros(0, np.uint32)
+        return msgs, sends, kinds, xs, np.asarray(ys, np.uint32), offs
 
     def included(self, record):
         return True
 
     def generate_dependencies(self, record, output):
-        events = self._events(record)
-        if not events:
+        lifted = self._lifted(record)
+        try:
+            record._global_lifted = lifted  # for generate_trace, which reads it
+        except AttributeError:
+            pass
+        _msgs, _sends, _kinds, _xs, ys, offs = lifted
+        if not len(ys):
             return
-        msgs = np.array([m for m, _, _ in events], dtype=np.uint32)
-        _xs, ys, offs = S.lift_x_batch(msgs)
         count(record, B.U8Range, offs, 0)
         rb = word_decompose_np((HALF - ys[:, 6].astype(np.int64)))
         count(record, B.U8Range, rb[:, 0], rb[:, 1])
@@ -101,25 +142,28 @@ class GlobalChip(Air):
         )
 
     def generate_trace(self, record, output):
-        events = self._events(record)
-        n = len(events)
+        from ..core import septic_native
+
+        msgs, sends, kinds, xs, ys, offs = self._lifted(record)
+        n = len(msgs)
+        native = septic_native.available()
+        sp = current()
+        if getattr(sp, "name", None) == "tracegen.trace":
+            sp.set(rows=n, sum="native" if native else "python")
         w = COLS.writer(n)
         if n:
-            msgs = np.array([m for m, _, _ in events], dtype=np.uint32)
-            sends = np.array([s for _, s, _ in events], dtype=np.uint32)
-            xs, ys, offs = S.lift_x_batch(msgs)
-            ys = np.asarray(ys, np.uint32)
             w.mat[:, COLS.slc("message")] = msgs
-            w.mat[:, COLS.idx("kind")] = [k for _, _, k in events]
+            w.mat[:, COLS.idx("kind")] = kinds
             w.mat[:, COLS.idx("is_send")] = sends
             w.mat[:, COLS.idx("is_receive")] = 1 - sends
             w.mat[:, COLS.idx("offset")] = offs
-            w.mat[:, COLS.idx("x6")] = np.asarray(xs)[:, 6]
+            w.mat[:, COLS.idx("x6")] = xs[:, 6]
             w.mat[:, COLS.slc("y")] = ys
-            w.mat[:, COLS.idx("y6_inv")] = [pow(int(v), P - 2, P) for v in ys[:, 6]]
+            w.mat[:, COLS.idx("y6_inv")] = F.finv(ys[:, 6])
             w.mat[:, COLS.slc("range_b")] = word_decompose_np(HALF - ys[:, 6].astype(np.int64))
             y_used = np.where(sends[:, None] == 1, S.sneg(ys), ys)
-            slopes, accs = _running_sums(S.digest_zero(), xs, y_used)
+            sums = septic_native.running_sums if native else _running_sums
+            slopes, accs = sums(S.digest_zero(), xs, y_used)
             w.mat[:, COLS.slc("slope")] = slopes
             w.mat[:, COLS.slc("acc")] = accs
         w.set("is_real", np.ones(n))
