@@ -81,9 +81,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels' launches and launch shapes (each among those phase 3 held)
      and peak device memory;
  10. the fused path: phase 5's program, machine and keys proved FUSED_PROVES
-     times through ziren_tpu_torch.stark.tfused.prove_shards_fused (one CUDA graph
-     per shard shape, captured on the first shard of a shape and replayed
-     for the others); the first proof is of phase 5's records and must be
+     times through ziren_tpu_torch.stark.machine.prove under ZIREN_FUSED=1
+     (one CUDA graph per shard shape, captured on the first shard of a
+     shape and replayed for the others); the first proof is of phase 5's records and must be
      byte-equal to phase 5's eager proof, shard for shard, and verify; the
      warm proves must make no eager wrapper call, and their launches
      must equal each graph's capture histogram times its replays. Reports
@@ -112,18 +112,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      the chains' went for the time of phase 14), and KeccakSponge's share
      of its shard's eager launches;
  12. the multi-device path (ziren_tpu_torch/device.py's Mesh, stark/ici.py,
-     stark/sharded.py): a mesh of MESH_MEMBERS members, each a device and a
+     stark.machine.prove(devices=...)): a mesh of MESH_MEMBERS members, each a device and a
      stream of its own, all on the one card (one member per card when the
      machine has several). commit_row_sharded and leaf_hash_row_sharded of
      a seeded (2^17, 600) and a (2^17, 108) matrix over 1, 2 and 4
      members, bit-equal to ops/tpcs.merkle_commit on one device (phase 6
      holds that tree against the host), and ntt_mesh of the (2^17, 108)
      matrix, bit-equal to ops/tntt.ntt on one device; then phase 5's
-     program over 2 members: prove_shards_sharded twice (the first builds
-     each member's graphs, the second replays them) and
-     StarkMachine.prove(devices=...) once, each byte-equal to phase 5's
-     eager proof shard for shard (fix_shape pads as phase 5's cost model
-     does) and verified. Reports the seconds of each commit and NTT against
+     program over 2 members through StarkMachine.prove(devices=...):
+     twice under ZIREN_FUSED=1 (the first builds each member's graphs, the
+     second replays them) and once eagerly, each byte-equal to phase 5's
+     eager proof shard for shard (the fused path pads as phase 5's cost
+     model does) and verified. Reports the seconds of each commit and NTT against
      one device and K1's bound, each prove's rate, each member's graphs
      (capture, instantiate, nodes, pool), replays, peak device memory, and
      the launches and launch shapes of the path. Members that share a card
@@ -747,6 +747,7 @@ def phase_fused(program, machine, pk, vk, proof, records) -> dict:
     from ziren_tpu_torch import kernels
     from ziren_tpu_torch.machine.mips import execute_sharded, verify_mips_proof
     from ziren_tpu_torch.stark import tfused
+    from ziren_tpu_torch.stark.machine import prove
     from ziren_tpu_torch.stark.serialize import serialize_shard_proof
 
     eager = [serialize_shard_proof(sp) for sp in proof.shard_proofs]
@@ -763,7 +764,8 @@ def phase_fused(program, machine, pk, vk, proof, records) -> dict:
         recs = records if i == 0 else execute_sharded(program, SHARD_SIZE)[1]
         stats: dict = {}
         t0 = time.perf_counter()
-        proofs.append(tfused.prove_shards_fused(machine, pk, recs, stats=stats))
+        with fused_path():
+            proofs.append(prove(machine, pk, recs, stats=stats))
         torch.cuda.synchronize()
         rates.append(FIB_CYCLES / (time.perf_counter() - t0) / 1e3)
         all_stats.append(stats)
@@ -804,8 +806,8 @@ def phase_fused(program, machine, pk, vk, proof, records) -> dict:
               f"{b['instantiate_s']:.3f} s, {b['nodes']} nodes, memory pool {b['pool_bytes']} "
               f"bytes, launches recorded {b['launches']}", flush=True)
     for i, st in enumerate(all_stats):
-        print(f"  prove {i + 1}: call s a shard (warm-up and capture, or load and replay) "
-              + ", ".join(f"{s:.3f}" for s in st["call_s"])
+        print(f"  prove {i + 1}: dispatch s a shard (warm-up and capture, or load and replay) "
+              + ", ".join(f"{s:.3f}" for s in st["dispatch_s"])
               + "; replay ms on the card " + ", ".join(f"{m:.3f}" for m in st["replay_ms"])
               + "; trace-gen wait s " + ", ".join(f"{s:.3f}" for s in st["trace_wait_s"])
               + f"; fetch {st['fetch_s']:.3f} s, assemble {st['assemble_s']:.3f} s", flush=True)
@@ -866,6 +868,21 @@ class _TraceGenClock:
 
     def remove(self) -> None:
         self._open.__exit__(None, None, None)
+
+
+@contextlib.contextmanager
+def fused_path():
+    """While open, ZIREN_FUSED=1: stark.machine.prove's shard loop takes
+    each shard through one CUDA graph per shard shape (stark/tfused.py)."""
+    before = os.environ.get("ZIREN_FUSED")
+    os.environ["ZIREN_FUSED"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("ZIREN_FUSED")
+        else:
+            os.environ["ZIREN_FUSED"] = before
 
 
 @contextlib.contextmanager
@@ -1013,11 +1030,8 @@ def phase_precompiles(host_proc) -> dict:
                     torch.cuda.reset_peak_memory_stats()
                     kernels.reset_launches()
                     t0 = time.perf_counter()
-                    if how == "eager":
+                    with fused_path() if how == "fused" else contextlib.nullcontext():
                         proofs.append(prove(machine, pk, records, fix_shapes=True, stats=stats))
-                    else:
-                        proofs.append(tfused.prove_shards_fused(machine, pk, records,
-                                                                stats=stats))
                     torch.cuda.synchronize()
                     rates.append(cycles / (time.perf_counter() - t0) / 1e3)
                     peaks.append(torch.cuda.max_memory_allocated())
@@ -1058,12 +1072,11 @@ def phase_precompiles(host_proc) -> dict:
             print(f"    shards {[i + 1 for i, t in enumerate(sets) if t == s]}: "
                   + ", ".join(f"{c} 2^{h}" for c, h in zip(s, heights)), flush=True)
         for i, (st, r, peak, tg) in enumerate(zip(all_stats, rates, peaks, tracegen)):
-            per = st.get("dispatch_s") or st.get("call_s")
-            kind = "dispatch" if "dispatch_s" in st else "call (warm-up and capture, or replay)"
+            kind = "dispatch (warm-up and capture, or replay)" if "built" in st else "dispatch"
             how = "eager" if i == 0 else "fused, on the eager prove's traces"
             print(f"    prove {i + 1} ({how}): {r:.3f} kHz prove-only; trace-gen wait s "
                   + ", ".join(f"{s:.3f}" for s in st["trace_wait_s"])
-                  + f"; {kind} s " + ", ".join(f"{s:.3f}" for s in per)
+                  + f"; {kind} s " + ", ".join(f"{s:.3f}" for s in st["dispatch_s"])
                   + ("; replay ms " + ", ".join(f"{m:.3f}" for m in st["replay_ms"])
                      if st.get("replay_ms") else "")
                   + f"; fetch {st['fetch_s']:.3f} s, assemble {st['assemble_s']:.3f} s; "
@@ -1109,7 +1122,6 @@ def phase_mesh(dev, program, machine, pk, vk, proof) -> dict:
     from ziren_tpu_torch.ops import tfield as tf
     from ziren_tpu_torch.ops import tntt, tpcs
     from ziren_tpu_torch.stark import ici, tfused
-    from ziren_tpu_torch.stark.sharded import prove_shards_sharded
     from ziren_tpu_torch.stark.serialize import serialize_shard_proof
     from ziren_tpu_torch.tools import kernel_bench as kb
 
@@ -1144,17 +1156,14 @@ def phase_mesh(dev, program, machine, pk, vk, proof) -> dict:
     eager = [serialize_shard_proof(sp) for sp in proof.shard_proofs]
     mesh2 = mesh_of(dev, 2, "shard")
     runs = []
-    for name in ("prove_shards_sharded, building", "prove_shards_sharded, warm",
-                 "StarkMachine.prove(devices=...)"):
+    for name in ("fused, building", "fused, warm", "eager"):
         _ex, records = execute_sharded(program, SHARD_SIZE)
         stats: dict = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         replays = {id(fs): fs.replays for fs in tfused._MEM.values()}
         t0 = time.perf_counter()
-        if name.startswith("prove_shards_sharded"):
-            got = prove_shards_sharded(machine, pk, records, mesh2, stats=stats)
-        else:
+        with fused_path() if name.startswith("fused") else contextlib.nullcontext():
             got = machine.prove(pk, records, fix_shapes=True, devices=mesh2, stats=stats)
         torch.cuda.synchronize()
         prove_s = time.perf_counter() - t0
@@ -1170,14 +1179,13 @@ def phase_mesh(dev, program, machine, pk, vk, proof) -> dict:
     launches = launches_of("the multi-device path")
 
     for name, prove_s, peak, stats, replayed, verify_s in runs:
-        per = stats.get("call_s") or stats["dispatch_s"]
-        kind = "call (warm-up and capture, or load and replay)" if "call_s" in stats \
+        kind = "dispatch (warm-up and capture, or load and replay)" if "built" in stats \
             else "dispatch"
-        print(f"  {name} over 2 members: {FIB_CYCLES / prove_s / 1e3:.3f} kHz prove-only "
+        print(f"  StarkMachine.prove(devices=...), {name}, over 2 members: {FIB_CYCLES / prove_s / 1e3:.3f} kHz prove-only "
               f"({prove_s:.3f} s), byte-equal to phase 5's eager proof shard for shard, "
               f"verify_mips_proof ok in {verify_s:.3f} s; {kind} s "
-              + ", ".join(f"{s:.3f}" for s in per)
-              + (f" on members {stats['member']}" if "member" in stats else "")
+              + ", ".join(f"{s:.3f}" for s in stats["dispatch_s"])
+              + f" on members {stats['member']}"
               + f"; fetch {stats['fetch_s']:.3f} s, assemble {stats['assemble_s']:.3f} s; "
               f"replays {replayed}; peak device memory {peak} bytes", flush=True)
         for b in stats.get("built", []):
@@ -1672,7 +1680,7 @@ def ladder_registry() -> None:
     from ziren_tpu_torch.recursion import shape_universe as su
     from ziren_tpu_torch.sdk import ProverClient
     from ziren_tpu_torch.stark.opts import ZirenCoreOpts
-    from ziren_tpu_torch.stark.shape import _gen_traces
+    from ziren_tpu_torch.stark.shape import record_traces
 
     client = ProverClient(config="dev", device="cpu")
 
@@ -1680,7 +1688,7 @@ def ladder_registry() -> None:
         _ex, records = execute_sharded(pk.program, ZirenCoreOpts.auto().shard_size)
         shapes = set()
         for record in records:
-            traces = sorted(_gen_traces(pk.machine, record), key=lambda t: -t[1].shape[0])
+            traces = sorted(record_traces(pk.machine, record), key=lambda t: -t[1].shape[0])
             shapes.add(tuple((c.name, t.shape[0].bit_length() - 1) for c, t in traces))
         shapes = list(shapes)
         su.build_full_registry(pk.machine, pk.vk, shapes, config=client._config)

@@ -167,18 +167,18 @@ def mips_shard():
     import ziren_tpu_torch.machine.mips as tmips
     import ziren_tpu_torch.stark.shape as tshape
 
-    def build(asm, mips, shape, config):
+    def build(asm, mips, traces_of, config):
         program = asm.fibonacci_program(30)
         machine = mips.mips_machine(config())
         pk, _vk = machine.setup(program)
         _ex, record = mips.execute(program)
-        traces = {c.name: (c, tr) for c, tr in shape._gen_traces(machine, record)}
+        traces = {c.name: (c, tr) for c, tr in traces_of(machine, record)}
         pv = record.public_values
         pv = pv.to_list() if hasattr(pv, "to_list") else list(pv)
         return machine, pk, traces, pv
 
-    jax_side = build(jasm, jmips, jshape, dev_config)
-    port_side = build(tasm, tmips, tshape, port_dev_config)
+    jax_side = build(jasm, jmips, jshape._gen_traces, dev_config)
+    port_side = build(tasm, tmips, tshape.record_traces, port_dev_config)
     assert list(jax_side[2]) == list(port_side[2]) and jax_side[3] == port_side[3]
     for name, (_c, tr) in jax_side[2].items():
         assert np.array_equal(tr, port_side[2][name][1]), name

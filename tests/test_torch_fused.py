@@ -54,7 +54,7 @@ def _base(machine, pk):
 
 
 def _fused_shard(machine, pk, record):
-    """The _FusedShard that prove_shards_fused built for this record."""
+    """The _FusedShard that the fused path built for this record."""
     chips, _traces, domains, _pv = tprover.shard_layout(machine, record)
     return tfused._MEM[tfused._machine_key(machine, pk, chips, domains, CPU)]
 
@@ -155,7 +155,8 @@ def mips30():
     eager = tprover.prove_shard(machine, pk, record, _base(machine, pk), "cpu")
     with pytest.MonkeyPatch.context() as mp:
         _trapped_body(mp)
-        fused = tfused.prove_shards_fused(machine, pk, [record], device="cpu")
+        mp.setenv("ZIREN_FUSED", "1")
+        fused = tmachine.prove(machine, pk, [record], device="cpu")
     return {"jax": jax_bytes, "eager": tser.serialize_shard_proof(eager),
             "fused": [tser.serialize_shard_proof(sp) for sp in fused.shard_proofs],
             "machine": machine, "vk": vk, "program": prog}
@@ -205,9 +206,9 @@ class _PortTwoStart(PortFibonacciAir):
     generate_trace = _TwoStart.generate_trace
 
 
-def test_engine_fused_matches_host_and_eager():
-    """The engine AIR through prove_shards_fused: byte-equal to the JAX
-    package's host prover and to the port's eager path."""
+def test_engine_fused_matches_host_and_eager(monkeypatch):
+    """The engine AIR through the fused path (ZIREN_FUSED=1): byte-equal to
+    the JAX package's host prover and to the port's eager path."""
     jm = jmachine.StarkMachine(jconfig.dev_config(), [FibonacciAir()], num_public_values=3)
     jpk, _ = jm.setup()
     tm = tmachine.StarkMachine(tconfig.dev_config(), [PortFibonacciAir()], num_public_values=3)
@@ -216,13 +217,14 @@ def test_engine_fused_matches_host_and_eager():
     want = jser.serialize_shard_proof(
         jprover_host.prove_shard(jm, jpk, Record(n=32, pv=fib_pv(32)), _base(jm, jpk)))
     eager = tprover.prove_shard(tm, tpk, record, _base(tm, tpk), "cpu")
-    fused = tfused.prove_shards_fused(tm, tpk, [record], device="cpu")
+    monkeypatch.setenv("ZIREN_FUSED", "1")
+    fused = tmachine.prove(tm, tpk, [record], device="cpu")
     assert tser.serialize_shard_proof(eager) == want
     assert [tser.serialize_shard_proof(sp) for sp in fused.shard_proofs] == [want]
     assert tm.verify(tvk, fused)
 
 
-def test_static_buffers_take_a_second_shard():
+def test_static_buffers_take_a_second_shard(monkeypatch):
     """Refilled with a second shard's inputs, the same _FusedShard proves
     that shard, not the first: its traces and public values come from the
     buffers, nothing of the first shard is baked in."""
@@ -238,7 +240,8 @@ def test_static_buffers_take_a_second_shard():
         jm, jpk, Record(n=32, pv=list(r.public_values)), _base(jm, jpk)))
         for r in (first, second)]
     assert host[0] != host[1]
-    proof = tfused.prove_shards_fused(tm, tpk, [first], device="cpu")
+    monkeypatch.setenv("ZIREN_FUSED", "1")
+    proof = tmachine.prove(tm, tpk, [first], device="cpu")
     assert tser.serialize_shard_proof(proof.shard_proofs[0]) == host[0]
     fs = _fused_shard(tm, tpk, first)
     assert _fused_shard(tm, tpk, second) is fs  # one shape, one _FusedShard
@@ -247,25 +250,25 @@ def test_static_buffers_take_a_second_shard():
         assert _prove_again(fs, tm, tpk, second) == host[1]
         assert _prove_again(fs, tm, tpk, first) == host[0]
     # both shards in one call: the first builds, the second refills
-    both = tfused.prove_shards_fused(tm, tpk, [second, first], device="cpu")
+    both = tmachine.prove(tm, tpk, [second, first], device="cpu")
     assert [tser.serialize_shard_proof(sp) for sp in both.shard_proofs] == host[::-1]
     assert tm.verify(tvk, both)
 
 
 def test_fused_route_under_ziren_fused(monkeypatch):
-    """ZIREN_FUSED=1 sends StarkMachine.prove's device branch and
-    stark.machine.prove to prove_shards_fused; off by default."""
+    """ZIREN_FUSED=1 sends each shard of StarkMachine.prove's device branch
+    and of stark.machine.prove to tfused.dispatch_fused; off by default."""
     tm = tmachine.StarkMachine(tconfig.dev_config(), [PortFibonacciAir()], num_public_values=3)
     tpk, tvk = tm.setup()
     record = Record(n=16, pv=fib_pv(16))
     calls = []
-    real = tfused.prove_shards_fused
+    real = tfused.dispatch_fused
 
-    def spy(*args, **kw):
-        calls.append(kw.get("device"))
-        return real(*args, **kw)
+    def spy(machine, pk, record, member):
+        calls.append(member.device)
+        return real(machine, pk, record, member)
 
-    monkeypatch.setattr(tfused, "prove_shards_fused", spy)
+    monkeypatch.setattr(tfused, "dispatch_fused", spy)
     monkeypatch.delenv("ZIREN_FUSED", raising=False)
     assert not tfused.enabled()
     eager = tm.prove(tpk, [record], device="cpu")
@@ -291,9 +294,9 @@ def test_fused_needs_the_gpu_by_default(monkeypatch):
         pytest.skip("checks the behaviour on a machine without CUDA")
     tm = tmachine.StarkMachine(tconfig.dev_config(), [PortFibonacciAir()], num_public_values=3)
     tpk, _ = tm.setup()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tfused.prove_shards_fused(tm, tpk, [Record(n=16, pv=fib_pv(16))])
     monkeypatch.setenv("ZIREN_FUSED", "1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tmachine.prove(tm, tpk, [Record(n=16, pv=fib_pv(16))])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tm.prove(tpk, [Record(n=16, pv=fib_pv(16))])
 
@@ -357,7 +360,8 @@ def test_a_build_holds_up_no_built_shape(monkeypatch):
     graphs is locked only to look up or claim a key. The build then ends and
     proves its own shard."""
     tm, tpk, tvk = _engine()
-    tfused.prove_shards_fused(tm, tpk, [Record(n=16, pv=fib_pv(16))], device="cpu")
+    monkeypatch.setenv("ZIREN_FUSED", "1")
+    tmachine.prove(tm, tpk, [Record(n=16, pv=fib_pv(16))], device="cpu")
     gate, entered = threading.Event(), threading.Event()
     real = tfused._FusedShard.warm_and_capture
 
@@ -370,8 +374,7 @@ def test_a_build_holds_up_no_built_shape(monkeypatch):
     out = {}
 
     def prove(name, n):
-        out[name] = tfused.prove_shards_fused(tm, tpk, [Record(n=n, pv=fib_pv(n))],
-                                              device="cpu")
+        out[name] = tmachine.prove(tm, tpk, [Record(n=n, pv=fib_pv(n))], device="cpu")
 
     building = threading.Thread(target=prove, args=("new", 128))  # a shape no other test builds
     building.start()
@@ -397,6 +400,7 @@ def test_two_threads_build_one_shape_once(monkeypatch):
     other waits for that build and replays it (on the CPU: runs its body
     over the buffers); both proofs are right."""
     tm, tpk, tvk = _engine()
+    monkeypatch.setenv("ZIREN_FUSED", "1")
     builds = []
     real = tfused._FusedShard.warm_and_capture
 
@@ -411,8 +415,8 @@ def test_two_threads_build_one_shape_once(monkeypatch):
 
     def prove():
         start.wait(timeout=30)
-        out.append(tfused.prove_shards_fused(tm, tpk, [Record(n=256, pv=fib_pv(256))],
-                                             device="cpu"))  # a shape no other test builds
+        out.append(tmachine.prove(tm, tpk, [Record(n=256, pv=fib_pv(256))],
+                                  device="cpu"))  # a shape no other test builds
 
     threads = [threading.Thread(target=prove) for _ in range(2)]
     for t in threads:

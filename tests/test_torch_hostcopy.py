@@ -7,11 +7,12 @@ rewritten to relative ones and nothing else changed. Each copied file is
 held against its original here, so a repair made on one side shows up as a
 difference on the other. A few files differ by design, in the functions and
 methods BY_DESIGN names and nowhere else: stark/machine.py (the device
-branch of StarkMachine.prove goes to the torch prover and takes a `device`,
-or `devices`, a mesh whose members take the shards in turn, as the JAX
-package's `devices` does; under ZIREN_FUSED=1 a `device` prove goes to
-stark/tfused.py, the port of stark/fused.py, as the JAX package's
-StarkMachine.prove goes to fused.py),
+branch of StarkMachine.prove goes to the torch prover's one shard loop and
+takes a `device`, or `devices`, a mesh whose members take the shards in
+turn, as the JAX package's `devices` does; under ZIREN_FUSED=1 the loop
+takes each shard through stark/tfused.py, the port of stark/fused.py, as
+the JAX package's StarkMachine.prove goes to fused.py; its `parallel` is
+gone: the host prover's shards always prove concurrently),
 machine/mips.py (prove_program passes `device` on;
 prove_program_checkpointed takes `device` and proves its shards in order on
 the calling thread with the torch shard prover, the workers regenerating
@@ -45,10 +46,21 @@ counts and writes one event, round and byte at a time. The port's spans
 prove path; a copied file that holds them imports them from trace.py, and
 is compared with its original after they are taken out (`_untraced`): a
 `with span(...)` gives way to its body, a span's `set` goes, and a pool's
-`carried(fn)` is `fn`. Two functions hold more: the executor's run() and
-run_sharded() close the pc trace file when they end, and stark/shape.py's
-_gen_traces times each chip's trace in a loop where the original builds a
-list in one expression.
+`carried(fn)` is `fn`. The executor's run() and run_sharded() hold more:
+they close the pc trace file when they end. A record's traces are made in
+one function, stark/shape.py's record_traces, where the original makes them
+in seven places: it emits the synthetic events and the dependencies once a
+record, under one state on the record (_Traced, where the original keeps
+flags that disagree: a record traced by the prover and then counted by
+estimate_targets had its synthetic events twice), pads under heights, keeps
+the traces on the record for the provers, and records the `tracegen` spans
+on every path. The original's copies call it in the port: stark/shape.py's
+emit_synthetic, generate_fixed and fix_shape (its _gen_traces is gone), the
+host prover's prove_shard (stark/prover.py), machine/debug.py's
+generate_all_traces, and recursion/shape_universe.py's
+fix_records_to_clusters; the cost model's height rule is one function,
+stark/shape.py's log_height, which estimate_targets, estimate_lde_area and
+shape_universe's cluster_shapes call (its _round_log is gone).
 """
 
 import ast
@@ -65,20 +77,25 @@ DST = os.path.dirname(ziren_tpu_torch.__file__)
 # files of the port that share a name with one of the JAX package and are
 # not copies of it
 OWN = {"__init__.py", "ops/__init__.py", "stark/__init__.py", "stark/backend.py",
-       "stark/ici.py", "stark/sharded.py"}
+       "stark/ici.py"}
 # a name with a dot is a method: the rest of its class is held
 BY_DESIGN = {
     "stark/machine.py": {"StarkMachine.prove", "prove"},
     "machine/mips.py": {"prove_program", "prove_program_checkpointed"},
     "executor/executor.py": {"Executor.run", "Executor.run_sharded"},
-    "stark/shape.py": {"_gen_traces"},
+    "stark/shape.py": {"_gen_traces", "_Traced", "_state", "emit_synthetic", "record_traces",
+                       "log_height", "estimate_targets", "estimate_lde_area",
+                       "generate_fixed", "fix_shape"},
+    "stark/prover.py": {"prove_shard"},
+    "machine/debug.py": {"generate_all_traces"},
     "recursion/machine.py": {"prove_recursion"},
     "recursion/pipeline.py": {"_prove_cached", "lift", "join", "compress", "shrink",
                               "wrap_bn254"},
     "recursion/mips_pipeline.py": {"lift_shard", "join", "compress"},
     "recursion/deferred.py": {"deferred_leaf", "deferred_join", "deferred_chain",
                               "attach_deferred"},
-    "recursion/shape_universe.py": {"_registry_cache_path"},
+    "recursion/shape_universe.py": {"_registry_cache_path", "_round_log", "cluster_shapes",
+                                    "fix_records_to_clusters"},
     "sdk.py": {"create_prover", "ProverClient.__init__", "ProverClient.prove",
                "ProverClient.compressed_prove", "ProverClient.shrink_prove"},
     "network/wire.py": {"_RestrictedUnpickler.find_class"},
@@ -108,11 +125,13 @@ OWN_IMPORTS = {"network/auth.py": {"threading"}}
 # ported: stark/fused.py is ported as stark/tfused.py (one CUDA graph per
 # shard shape), stark/aot.py stays unported by design (the jax.export disk
 # cache of fused.py's executables: a CUDA graph cannot be written to disk);
-# stark/sharded.py and stark/ici.py are ported under their own names (OWN:
-# over a mesh of members, ziren_tpu_torch/device.py)
+# stark/sharded.py is ported as the mesh of stark/machine.py's one shard
+# loop (`devices=`, eager or fused as ZIREN_FUSED says); stark/ici.py is
+# ported under its own name (OWN: over a mesh of members,
+# ziren_tpu_torch/device.py)
 NOT_COPIED = {*[f"ops/j{m}.py" for m in ("challenger", "field", "merkle", "ntt", "pcs",
                                           "poseidon2")],
-              *[f"stark/{m}.py" for m in ("jprover", "jfolder", "fused", "aot")]}
+              *[f"stark/{m}.py" for m in ("jprover", "jfolder", "fused", "aot", "sharded")]}
 RECURSION = ("__init__", "deferred", "dsl", "machine", "mips_pipeline", "pipeline", "septic",
              "shape_universe", "verifier", "vk_registry")
 # one word of a docstring reads otherwise in the copy: (pattern, as copied)
@@ -269,8 +288,9 @@ def test_copied_module_matches_original(rel):
         # what differs takes `device`
         tree = ast.parse(got)
         for n in tree.body:
-            if isinstance(n, ast.FunctionDef) and n.name in skip - {"wrap_bn254",
-                                                                   "_registry_cache_path"}:
+            if isinstance(n, ast.FunctionDef) and n.name in skip - {
+                    "wrap_bn254", "_registry_cache_path", "cluster_shapes",
+                    "fix_records_to_clusters"}:
                 assert "device" in [a.arg for a in n.args.args + n.args.kwonlyargs], n.name
     takes_device = {"sdk.py": ("ProverClient", "__init__"),
                     "network/service.py": ("ProverService", "__init__")}

@@ -38,7 +38,7 @@ def test_every_module_imports_without_jax():
               "snark.wrap_circuit", "guest.abi", "guest.build", "stark.interop",
               "stark.picus", "machine.debug", "stark.tfused",
               "tools.precompile_programs", "tools.kernel_bench", "device", "stark.ici",
-              "stark.sharded", "examples", "examples.precompiles", "examples.network_prover",
+              "examples", "examples.precompiles", "examples.network_prover",
               "examples.prove_guest", "tools.bench_prove", "tools.profile_prove",
               "tools.profile_device", "tools.device_probe", "tools.groth16_wrap",
               "tools.plonk_wrap", "tools.engine_air", "tools.bench", "tools.memory_programs",

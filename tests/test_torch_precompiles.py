@@ -31,8 +31,9 @@ import ziren_tpu.stark.serialize as jser
 import ziren_tpu_torch.executor.asm as tasm
 import ziren_tpu_torch.machine.mips as tmips
 import ziren_tpu_torch.stark.config as tconfig
+import ziren_tpu_torch.stark.machine as tmachine
 import ziren_tpu_torch.stark.serialize as tser
-from ziren_tpu_torch.stark import carry, tfused, tprover
+from ziren_tpu_torch.stark import carry, tprover
 from ziren_tpu_torch.tools import precompile_programs as pp
 
 # Under pytest-xdist each worker keeps to one torch thread: the workers
@@ -130,7 +131,8 @@ def test_hash_group_fused_body_reads_nothing_back(hash_group):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tprover, "prove_body", trapped)
-        fused = tfused.prove_shards_fused(g.machine, g.pk, [g.record], device="cpu")
+        mp.setenv("ZIREN_FUSED", "1")
+        fused = tmachine.prove(g.machine, g.pk, [g.record], device="cpu")
     assert [tser.serialize_shard_proof(sp) for sp in fused.shard_proofs] == g.jax_bytes
 
 

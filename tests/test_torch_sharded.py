@@ -1,7 +1,7 @@
 """The port's data-parallel paths over a mesh of CPU members:
-stark/sharded.py:prove_shards_sharded (one _FusedShard per member, its body
-run without capture on the CPU) and StarkMachine.prove(devices=...) (the
-eager shard prover, shards in turn over the members).
+stark.machine.prove(devices=...), shards in turn over the members, under
+ZIREN_FUSED=1 (one _FusedShard per member, its body run without capture on
+the CPU) and eagerly (the eager shard prover).
 
 Each proof is byte-equal to the port's host prover (device="host") and to
 the JAX package's host prover on the same records, and verifies. The shards
@@ -31,7 +31,6 @@ import ziren_tpu_torch.stark.serialize as tser
 from ziren_tpu_torch.core import field as F
 from ziren_tpu_torch.device import Mesh
 from ziren_tpu_torch.stark import tfused, tprover
-from ziren_tpu_torch.stark.sharded import prove_shards_sharded
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -85,14 +84,16 @@ def engine():
 
 
 @pytest.mark.parametrize("members", [8, 3])
-def test_engine_shards_sharded(engine, members):
-    """8 shards over 8 members (one each) and over 3 (in turn): in record
-    order, byte-equal to both host provers; each member built a
-    _FusedShard of its own for the one shape, under a key of its own."""
+def test_engine_shards_sharded(engine, members, monkeypatch):
+    """The fused path (ZIREN_FUSED=1) of 8 shards over 8 members (one each)
+    and over 3 (in turn): in record order, byte-equal to both host provers;
+    each member built a _FusedShard of its own for the one shape, under a
+    key of its own."""
     tm, tpk, tvk, want = engine
     mesh = Mesh(["cpu"] * members, axis="shard")
     stats = {}
-    proof = prove_shards_sharded(tm, tpk, _records(), mesh, stats=stats)
+    monkeypatch.setenv("ZIREN_FUSED", "1")
+    proof = tmachine.prove(tm, tpk, _records(), devices=mesh, stats=stats)
     assert _bytes(proof) == want
     assert tm.verify(tvk, proof)
     assert stats["member"] == [i % members for i in range(SHARDS)]
@@ -135,10 +136,13 @@ def mips600():
     return program, machine, pk, vk, want
 
 
-def test_mips_shards_sharded(mips600):
+def test_mips_shards_sharded(mips600, monkeypatch):
+    """The fused path over 2 members pads the shards to one shape by
+    itself: StarkMachine.prove's fix_shapes is left False."""
     program, machine, pk, vk, want = mips600
     _ex, records = tmips.execute_sharded(program, 2048)
-    proof = prove_shards_sharded(machine, pk, records, Mesh(["cpu", "cpu"], "shard"))
+    monkeypatch.setenv("ZIREN_FUSED", "1")
+    proof = machine.prove(pk, records, devices=Mesh(["cpu", "cpu"], "shard"))
     assert _bytes(proof) == want
     assert tmips.verify_mips_proof(machine, vk, proof, pc_start=program.pc_start)
 
@@ -160,7 +164,7 @@ def test_device_and_devices_together_raise(engine):
         tmachine.prove(tm, tpk, _records(), device="cpu", devices=["cpu"])
 
 
-def test_no_mesh_without_cuda(engine):
+def test_no_mesh_without_cuda(engine, monkeypatch):
     """The default mesh is one member per card: without CUDA it raises, and
     so does every path that would take it, with no CPU member in its place."""
     if torch.cuda.is_available():
@@ -169,7 +173,8 @@ def test_no_mesh_without_cuda(engine):
     for make in (Mesh.default, lambda: Mesh(["cuda"]), lambda: Mesh([None, None])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+    monkeypatch.setenv("ZIREN_FUSED", "1")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        prove_shards_sharded(tm, tpk, _records())
+        tmachine.prove(tm, tpk, _records(), devices=[None, None])
     with pytest.raises(ValueError, match="all CUDA or all CPU|at least one"):
         Mesh([])

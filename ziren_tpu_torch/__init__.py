@@ -9,11 +9,16 @@ the imports rewritten; the device layers are ported:
   core/, executor/, machine/    copies: field, Poseidon2, executor, the
                                 MIPS machine and its chips
   stark/{chip,config,domain,folder,lookup,opts,pcs,permutation,proof,
-         prover,serialize,shape,verifier}.py
+         prover,serialize,verifier}.py
                                 copies: the host STARK prover and verifier
+  stark/shape.py       the shape system (copy), and the port's own
+                       record_traces: the one place a record's traces are
+                       made, natural or padded, and kept for the provers
   stark/machine.py     StarkMachine (copy) and prove(machine, pk, records,
-                       device=None): None is the GPU, "cpu" the plain versions;
-                       devices=: shards in turn over a mesh's members
+                       device=None), the one shard loop: None is the GPU,
+                       "cpu" the plain versions; devices=: shards in turn
+                       over a mesh's members; each shard eager or, under
+                       ZIREN_FUSED=1, through stark/tfused.py
   stark/carry.py       prover state in and out as numpy arrays and bytes
   ops/tfield.py        KoalaBear + ext4 arithmetic on canonical int64 tensors
   ops/tposeidon2.py    Poseidon2 permutation / sponge / compress / tree levels
@@ -22,11 +27,9 @@ the imports rewritten; the device layers are ported:
   stark/tfolder.py     LogUp permutation-trace and quotient folders
   stark/tprover.py     the per-shard device prover (one device body) and
                        proof assembly
-  stark/tfused.py      the shard body as one CUDA graph per shard shape
-                       (ZIREN_FUSED=1)
+  stark/tfused.py      the shard body as one CUDA graph per shard shape and
+                       mesh member (ZIREN_FUSED=1): dispatch_fused
   device.py            the mesh: members, each a device and its own stream
-  stark/sharded.py     prove_shards_sharded: shards in turn over a mesh's
-                       members, one graph per member and shape
   stark/ici.py         one commit's rows over a mesh, and the four-step NTT
   kernels.py           the hand-written CUDA kernels (csrc/poseidon2.cu):
                        K1 hash_rows, K2 permute, K3 compress_levels, K4 grind

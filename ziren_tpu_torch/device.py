@@ -1,5 +1,5 @@
 """The port's devices: the CUDA check, the resolution of a device name, and
-the mesh that the multi-device layer (stark/ici.py, stark/sharded.py and
+the mesh that the multi-device layer (stark/ici.py and
 stark.machine.prove(devices=...)) runs on, the counterpart of
 jax.sharding.Mesh.
 
@@ -80,7 +80,7 @@ def device_name(device) -> str:
 class Member:
     """One member of a mesh: its place on the axis, its device and its
     stream. A stream of None is the caller's current stream (every CPU
-    member; a CUDA device proved on without a mesh)."""
+    member; a CUDA device proved on without a mesh, whose index is None)."""
 
     __slots__ = ("index", "device", "stream")
 

@@ -14,14 +14,9 @@ from ..stark.permutation import generate_permutation_trace
 
 
 def generate_all_traces(machine, pk, record):
-    chips = [c for c in machine.chips if c.air.included(record)]
-    if not getattr(record, "_deps_done", False):
-        for c in chips:
-            c.air.emit_synthetic(record)
-        for c in chips:
-            c.air.generate_dependencies(record, record)
-        record._deps_done = True
-    return [(c, c.air.generate_trace(record, record)) for c in chips]
+    from ..stark.shape import record_traces
+
+    return record_traces(machine, record)
 
 
 def debug_constraints(machine, pk, record, challenges=None):

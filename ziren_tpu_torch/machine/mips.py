@@ -260,7 +260,7 @@ def prove_program_checkpointed(program, stdin=None, config=None,
     from ..device import prover_device
     from ..stark import tprover
     from ..stark.prover import prove_shard
-    from ..stark.shape import _gen_traces
+    from ..stark.shape import record_traces
 
     device = prover_device(device)
     on_host = device == "host"
@@ -293,7 +293,7 @@ def prove_program_checkpointed(program, stdin=None, config=None,
 
     def traced(k):  # the record with its traces, at their natural heights
         rec = regenerate(k)
-        rec._fixed_traces = _gen_traces(machine, rec)
+        record_traces(machine, rec, keep=True)
         return rec
 
     from ..stark.proof import MachineProof

@@ -38,10 +38,6 @@ from ..stark.proof import (
 GRID = 2  # log-height cluster grid (heights land on powers of 4)
 
 
-def _round_log(log_h: int, grid: int = GRID) -> int:
-    return ((log_h + grid - 1) // grid) * grid
-
-
 def record_kind(record) -> str:
     """The shard's cluster kind (reference shape/mod.rs small/core/memory
     cluster split)."""
@@ -59,7 +55,7 @@ def cluster_shapes(machine, records, grid: int = GRID) -> dict:
     (not per kind): the full interior shards drive every cycle chip's
     height, so the vector does not move with the last shard's remainder —
     the property that keeps the registry root shard-count-invariant."""
-    from ..stark.shape import emit_synthetic
+    from ..stark.shape import emit_synthetic, log_height
 
     order = {c.name: i for i, c in enumerate(machine.chips)}
     global_tgt: dict = {}
@@ -74,10 +70,7 @@ def cluster_shapes(machine, records, grid: int = GRID) -> dict:
             chips.add(c.name)
             n = c.air.num_rows(record)
             assert n is not None, f"{c.name} lacks a num_rows cost model"
-            log_h = (max(int(n), 4) - 1).bit_length()
-            if c.preprocessed_width == 0:
-                log_h = _round_log(log_h, grid)
-            global_tgt[c.name] = max(global_tgt.get(c.name, 0), log_h)
+            global_tgt[c.name] = max(global_tgt.get(c.name, 0), log_height(c, n, grid))
     return {
         kind: tuple(
             sorted(
@@ -90,25 +83,15 @@ def cluster_shapes(machine, records, grid: int = GRID) -> dict:
 
 
 def fix_records_to_clusters(machine, records, grid: int = GRID) -> dict:
-    """Pad every record's traces to its kind's cluster shape (attached as
-    record._fixed_traces, consumed by the provers). Returns the shapes."""
-    from ..machine.layout import fixed_height
-    from ..stark.shape import emit_synthetic
+    """Pad every record's traces to its kind's cluster shape (kept on the
+    record by stark/shape.py:record_traces, where the provers take them).
+    Returns the shapes."""
+    from ..stark.shape import record_traces
 
     shapes = cluster_shapes(machine, records, grid)
     for record in records:
-        tgt = dict(shapes[record_kind(record)])
-        chips = [c for c in machine.chips if c.air.included(record)]
-        emit_synthetic(machine, record)
-        if not getattr(record, "_deps_done", False):
-            for c in chips:
-                c.air.generate_dependencies(record, record)
-            record._deps_done = True
-        out = []
-        for c in chips:
-            with fixed_height(1 << tgt[c.name]):
-                out.append((c, c.air.generate_trace(record, record)))
-        record._fixed_traces = out
+        heights = {name: 1 << log_h for name, log_h in shapes[record_kind(record)]}
+        record_traces(machine, record, heights, keep=True)
     return shapes
 
 

@@ -1,14 +1,15 @@
 """Intra-proof sharding: ONE commit spread across the members of a mesh
 (counterpart of stark/ici.py).
 
-The data-parallel path (stark/sharded.py) gives each member a whole shard;
-this module is the orthogonal axis: a SINGLE shard's hot commit kernel,
-Poseidon2 Merkle leaf hashing, runs row-sharded over a mesh, with the
-Merkle cap reduced across members by an all-gather of per-member subtree
-roots, then the log2(N) top compress levels computed redundantly on every
-member. Against one device the result is bit-identical to
-tpcs.merkle_commit / core.merkle.commit: leaf hashing is row-parallel and
-the tree's bottom log2(n/N) levels never cross a member boundary.
+The data-parallel path (stark.machine.prove(devices=...)) gives each
+member a whole shard; this module is the orthogonal axis: a SINGLE
+shard's hot commit kernel, Poseidon2 Merkle leaf hashing, runs row-sharded
+over a mesh, with the Merkle cap reduced across members by an all-gather
+of per-member subtree roots, then the log2(N) top compress levels
+computed redundantly on every member. Against one device the result is
+bit-identical to tpcs.merkle_commit / core.merkle.commit: leaf hashing is
+row-parallel and the tree's bottom log2(n/N) levels never cross a member
+boundary.
 
 A mesh (ziren_tpu_torch/device.py) is an ordered list of members, each a
 device and, on CUDA, its own stream; several members may share one card.

@@ -105,8 +105,7 @@ class StarkMachine:
         )
         return pk, vk
 
-    def prove(self, pk, records, parallel: bool = True,
-              fix_shapes: bool = False, device=None, devices=None,
+    def prove(self, pk, records, fix_shapes: bool = False, device=None, devices=None,
               stats: dict | None = None) -> MachineProof:
         """Prove every shard. Shards are transcript-independent (each gets a
         clone of the post-vk challenger, reference prover.rs).
@@ -114,18 +113,15 @@ class StarkMachine:
         `device` names where the shards are proved. None is the GPU and
         raises without one; a torch device ("cuda", "cuda:0", or "cpu" for
         the plain PyTorch versions of the kernels) runs the torch shard
-        prover (stark/tprover.py) there, shards streaming through it one
-        after the other. "host" is the numpy oracle prover
+        prover there: the shard loop of stark.machine.prove, below, which
+        under ZIREN_FUSED=1 proves through one CUDA graph per shard shape
+        (stark/tfused.py). "host" is the numpy oracle prover
         (stark/prover.py), whose shards prove concurrently in a thread pool
-        (numpy and the native kernels release the GIL). A config that is
-        not device_capable (the outer BN254 config) takes "host" only.
-        Under ZIREN_FUSED=1 a torch device proves through one CUDA graph
-        per shard shape (stark/tfused.py), every shard padded.
-
-        `devices` (a device.Mesh, or a list of devices that becomes one) is
-        the data-parallel eager path in place of `device`: shard i is
-        proved on member i % len(devices), on its stream, and bypasses the
-        fused path; passing both raises.
+        (numpy and the native kernels release the GIL). A config that is not
+        device_capable (the outer BN254 config) takes "host" only. `devices`
+        (a device.Mesh, or a list of devices that becomes one) in place of
+        `device` proves shard i on member i % len(devices); passing both
+        raises.
 
         fix_shapes=True pads every shard to one batch-wide shape
         (stark/shape.py)."""
@@ -143,7 +139,7 @@ class StarkMachine:
             fix_shape(self, records)
         base = self.config.challenger()
         pk.vk.observe_into(base)
-        if len(records) <= 1 or not parallel:
+        if len(records) <= 1:
             return MachineProof(
                 [prove_shard(self, pk, r, base.clone()) for r in records]
             )
@@ -180,42 +176,47 @@ class StarkMachine:
 
 def prove(machine, pk, records, *, device=None, devices=None, fix_shapes: bool = True,
           stats: dict | None = None) -> MachineProof:
-    """Prove every shard with the torch shard prover on `device`: None is
-    the GPU (and raises without one), "cpu" runs the plain PyTorch versions
-    of the kernels. The device branch of StarkMachine.prove. Under
-    ZIREN_FUSED=1 (tfused.enabled()) it is tfused.prove_shards_fused: one
-    CUDA graph per shard shape, replayed.
+    """Prove every shard with the torch shard prover: the device branch of
+    StarkMachine.prove, and its one shard loop.
 
-    `devices` in place of `device` (a device.Mesh, or a list of devices that
-    becomes one; passing both raises) is the eager data-parallel path of
-    the JAX package's StarkMachine.prove(devices=...): shard i is dispatched
-    to member i % len(devices), on that member's stream, and the fused path
-    is bypassed.
+    The loop runs over members: `device` is one (None is the GPU and raises
+    without one; "cpu" runs the plain PyTorch versions of the kernels), and
+    `devices` in place of it (a device.Mesh, or a list of devices that
+    becomes one; passing both raises) is the data-parallel path of the JAX
+    package's StarkMachine.prove(devices=...): shard i is proved on member
+    i % len(devices), on that member's stream.
 
+    Each shard's body is issued without waiting for the device: eagerly
+    (tprover.dispatch_shard), or under ZIREN_FUSED=1 (tfused.enabled())
+    through one CUDA graph per shard shape and member
+    (tfused.dispatch_fused), every shard then padded to one shape.
     fix_shapes pads every shard to one batch-wide shape (stark/shape.py).
     When the cost model gives the targets without trace generation, shards
     generate their traces in a thread pool while earlier shards prove.
-    Every shard's proof comes back in one device-to-host copy per device
-    (per member) at the end.
+    Every shard's proof comes back in one device-to-host copy per member at
+    the end, and is assembled on the host (tprover.finish).
 
     `stats`, when given, receives host wall seconds per phase: trace-gen
     waits and dispatches per shard (a dispatch issues the shard's device
-    work without waiting for it), the fetch and the assembly."""
+    work, eager or replayed, without waiting for it), the fetch and the
+    assembly; on a mesh the member of each shard; on the fused path the
+    graphs this call built (capture and instantiate seconds, nodes, pool
+    bytes, launches recorded) and the device milliseconds of each replay
+    (CUDA events)."""
     if devices is not None:
         if device is not None:
             raise ValueError("pass device or devices, not both")
         mesh = devices if isinstance(devices, Mesh) else Mesh(devices, "shard")
-        members, path = mesh.members, "sharded"
+        members = mesh.members
     else:
-        device = resolve_device(device)
-        members, path = (Member(0, device),), "fused" if tfused.enabled() else "eager"
+        mesh, members = None, (Member(None, resolve_device(device)),)
+    fused = tfused.enabled()
+    path = "sharded" if mesh is not None else "fused" if fused else "eager"
     with span("prove", shards=len(records), path=path):
-        if path == "fused":
-            return tfused.prove_shards_fused(machine, pk, records, device=device, stats=stats)
         base = machine.config.challenger()
         pk.vk.observe_into(base)
         waits, dispatch_s, dispatches = [], [], []
-        with closing(shard_traces(machine, records, fix_shapes)) as pending:
+        with closing(shard_traces(machine, records, fix_shapes or fused)) as pending:
             for i in range(len(records)):
                 member = members[i % len(members)]
                 with span("shard", index=i) as sp:
@@ -224,11 +225,14 @@ def prove(machine, pk, records, *, device=None, devices=None, fix_shapes: bool =
                     waits.append(wait)
                     t0 = time.perf_counter()
                     with member.scope():
-                        d = dispatch_shard(machine, pk, r, base.clone(), member.device)
+                        if fused:
+                            d = tfused.dispatch_fused(machine, pk, r, member)
+                        else:
+                            d = dispatch_shard(machine, pk, r, base.clone(), member.device)
                     dispatch_s.append(time.perf_counter() - t0)
                     dispatches.append((member, d))
                     sp.set(chips=len(d["chips"]), rows=max(t.size for t in d["trace_domains"]))
-                    if path == "sharded":
+                    if mesh is not None:
                         sp.set(member=member.index)
 
         t0 = time.perf_counter()
@@ -242,4 +246,10 @@ def prove(machine, pk, records, *, device=None, devices=None, fix_shapes: bool =
     if stats is not None:
         stats.update(trace_wait_s=waits, dispatch_s=dispatch_s, fetch_s=t1 - t0,
                      assemble_s=time.perf_counter() - t1)
+        if mesh is not None:
+            stats["member"] = [member.index for member, _d in dispatches]
+        if fused:
+            stats["built"] = [d["built"] for _m, d in dispatches if d["built"]]
+            stats["replay_ms"] = [d["events"][0].elapsed_time(d["events"][1])
+                                  for _m, d in dispatches if d["events"]]
     return MachineProof(proofs)

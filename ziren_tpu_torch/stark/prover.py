@@ -32,25 +32,9 @@ def prove_shard(machine, pk, record, challenger):
     config = machine.config
     pcs = config.pcs
 
-    named_traces = getattr(record, "_fixed_traces", None)
-    if named_traces is None:
-        chips = [c for c in machine.chips if c.air.included(record)]
-        # dependencies pass: chips register byte-lookup multiplicities etc.
-        # (reference: machine.rs generate_dependencies) — once per record
-        if not getattr(record, "_deps_done", False):
-            for c in chips:
-                c.air.emit_synthetic(record)
-            for c in chips:
-                c.air.generate_dependencies(record, record)
-            try:
-                record._deps_done = True
-            except AttributeError:
-                pass
-        named_traces = [
-            (c, c.air.generate_trace(record, record)) for c in chips
-        ]
-    else:
-        named_traces = list(named_traces)
+    from .shape import record_traces
+
+    named_traces = record_traces(machine, record)
     # sort by height desc, stable (reference: prover.rs commit: sort by height)
     named_traces.sort(key=lambda t: -t[1].shape[0])
     chips = [c for c, _ in named_traces]

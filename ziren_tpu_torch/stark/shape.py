@@ -39,38 +39,78 @@ class Shape:
         return tuple(n for n, _ in self.heights)
 
 
+class _Traced:
+    """What record_traces has done to one record: its synthetic ALU events
+    emitted and its dependencies generated (each once: both append to the
+    record), and the traces it keeps on the record."""
+
+    __slots__ = ("_synth_done", "_deps_done", "_fixed_traces")
+
+    def __init__(self):
+        self._synth_done = self._deps_done = False
+        self._fixed_traces = None
+
+
+def _state(record) -> _Traced:
+    st = getattr(record, "_traced", None)
+    if st is None:
+        st = record._traced = _Traced()
+    return st
+
+
 def emit_synthetic(machine, record):
-    if getattr(record, "_synth_done", False):
+    st = _state(record)
+    if st._synth_done:
         return
     for c in machine.chips:
         if c.air.included(record):
             with span("tracegen.deps", chip=c.name):
                 c.air.emit_synthetic(record)
-    try:
-        record._synth_done = True
-    except AttributeError:
-        pass
+    st._synth_done = True
 
 
-def _gen_traces(machine, record):
-    """(chip, trace) pairs for every included chip, dependencies emitted."""
+def record_traces(machine, record, heights=None, keep: bool = False):
+    """(chip, trace) pairs for every chip the record includes, in machine
+    order: the one place a record's traces are made. The synthetic events
+    and the dependencies are emitted once a record. `heights` (chip name ->
+    rows) pads each trace to its height under fixed_height; None leaves
+    each at its natural height. `keep` keeps the traces on the record (the
+    provers then reuse them instead of regenerating): a kept trace is taken
+    again where it has the height asked for, and all of them where no
+    height is asked for."""
+    st = _state(record)
+    if heights is None and st._fixed_traces is not None:
+        return list(st._fixed_traces)
+    held = {c.name: t for c, t in st._fixed_traces or ()}
     with span("tracegen") as sp:
         chips = [c for c in machine.chips if c.air.included(record)]
         sp.set(chips=len(chips))
         emit_synthetic(machine, record)
-        if not getattr(record, "_deps_done", False):
+        if not st._deps_done:
             for c in chips:
                 with span("tracegen.deps", chip=c.name):
                     c.air.generate_dependencies(record, record)
-            try:
-                record._deps_done = True
-            except AttributeError:
-                pass
+            st._deps_done = True
         out = []
         for c in chips:
-            with span("tracegen.trace", chip=c.name):
-                out.append((c, c.air.generate_trace(record, record)))
-        return out
+            want = None if heights is None else heights[c.name]
+            t = held.get(c.name)
+            if t is None or t.shape[0] != want:
+                with fixed_height(want), span("tracegen.trace", chip=c.name):
+                    t = c.air.generate_trace(record, record)
+                assert want is None or t.shape[0] == want, (c.name, t.shape[0], want)
+            out.append((c, t))
+    if keep:
+        st._fixed_traces = out
+    return out
+
+
+def log_height(chip, n: int, grid: int = 1) -> int:
+    """The log2 height of a trace of `n` rows of `chip` (the cost model):
+    four rows at least, rounded up to the `grid` log-height cluster unless
+    the chip has a preprocessed trace (its height is pinned by the vk)."""
+    log_h = (max(int(n), 4) - 1).bit_length()
+    return log_h if chip.preprocessed_width else round_up_cluster(log_h, grid)
 
 
 def estimate_targets(machine, records, grid: int = 1):
@@ -88,10 +128,7 @@ def estimate_targets(machine, records, grid: int = 1):
             n = c.air.num_rows(record)
             if n is None:
                 return None
-            log_h = (max(int(n), 4) - 1).bit_length()
-            if c.preprocessed_width == 0:
-                log_h = round_up_cluster(log_h, grid)
-            targets[c.name] = max(targets.get(c.name, 0), 1 << log_h)
+            targets[c.name] = max(targets.get(c.name, 0), 1 << log_height(c, n, grid))
     return targets
 
 
@@ -110,7 +147,7 @@ def estimate_lde_area(machine, record, log_blowup: int = 1) -> int:
         n = c.air.num_rows(record)
         if n is None:
             return -1
-        h = 1 << (max(int(n), 4) - 1).bit_length()
+        h = 1 << log_height(c, n)
         cols = c.width + c.preprocessed_width + 4 * c.perm_width \
             + 4 * c.quotient_degree
         total += (h << log_blowup) * cols
@@ -118,27 +155,9 @@ def estimate_lde_area(machine, record, log_blowup: int = 1) -> int:
 
 
 def generate_fixed(machine, record, targets):
-    """Generate this record's traces at the target heights and attach
-    them as record._fixed_traces (thread-safe: fixed_height is
-    thread-local)."""
-    with span("tracegen") as sp:
-        chips = [c for c in machine.chips if c.air.included(record)]
-        sp.set(chips=len(chips))
-        emit_synthetic(machine, record)
-        if not getattr(record, "_deps_done", False):
-            for c in chips:
-                with span("tracegen.deps", chip=c.name):
-                    c.air.generate_dependencies(record, record)
-            try:
-                record._deps_done = True
-            except AttributeError:
-                pass
-        out = []
-        for c in chips:
-            with fixed_height(targets[c.name]), span("tracegen.trace", chip=c.name):
-                out.append((c, c.air.generate_trace(record, record)))
-    record._fixed_traces = out
-    return out
+    """Generate this record's traces at the target heights and keep them
+    on the record (thread-safe: fixed_height is thread-local)."""
+    return record_traces(machine, record, targets, keep=True)
 
 
 def round_up_cluster(log_h: int, grid: int = 1) -> int:
@@ -166,10 +185,10 @@ def fix_shape(machine, records, grid: int = 1):
         workers = min(len(records), os.cpu_count() or 4)
         with ThreadPoolExecutor(max_workers=workers) as pool:
             per_record = list(
-                pool.map(carried(lambda r: _gen_traces(machine, r)), records)
+                pool.map(carried(lambda r: record_traces(machine, r, keep=True)), records)
             )
     else:
-        per_record = [_gen_traces(machine, r) for r in records]
+        per_record = [record_traces(machine, r, keep=True) for r in records]
     machine_order = {c.name: i for i, c in enumerate(machine.chips)}
 
     targets = {}
@@ -180,23 +199,10 @@ def fix_shape(machine, records, grid: int = 1):
                 log_h = round_up_cluster(log_h, grid)
             targets[c.name] = max(targets.get(c.name, 0), log_h)
 
-    fixed = []
-    for record, traces in zip(records, per_record):
-        out = []
-        for c, t in traces:
-            want = 1 << targets[c.name]
-            if t.shape[0] != want:
-                assert t.shape[0] < want, (c.name, t.shape[0], want)
-                with fixed_height(want), span("tracegen.trace", chip=c.name):
-                    t = c.air.generate_trace(record, record)
-                assert t.shape[0] == want, c.name
-            out.append((c, t))
-        fixed.append(out)
-        # the eager prover path reuses these instead of regenerating
-        try:
-            record._fixed_traces = out
-        except AttributeError:
-            pass
+    # the traces below their target are made again at it; the provers
+    # reuse the ones kept on the records instead of regenerating
+    heights = {name: 1 << log_h for name, log_h in targets.items()}
+    fixed = [record_traces(machine, r, heights, keep=True) for r in records]
 
     shape = Shape(
         tuple(

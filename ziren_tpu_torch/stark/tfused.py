@@ -28,12 +28,13 @@ being built waits for that build and does not build it again. Captures run
 one at a time. A graph held by a call, or being built, is never evicted,
 and an evicted graph's last replay ends before it goes. A replay runs on
 the caller's current stream, after the graph's last replay, wherever that
-ran. stark/sharded.py builds one graph per member of a mesh: with
-_MEM_MAX = 4 the graphs of two members of a fibonacci proof (three shapes
-between them) evict most others.
+ran. A mesh (stark.machine.prove's `devices`) builds one graph per member:
+with _MEM_MAX = 4 the graphs of two members of a fibonacci proof (three
+shapes between them) evict most others.
 
-ZIREN_FUSED=1 routes StarkMachine.prove and stark.machine.prove here, as
-it routes the JAX package's StarkMachine.prove to fused.py. A CUDA graph
+ZIREN_FUSED=1 makes stark.machine.prove's shard loop (and so
+StarkMachine.prove's) take each shard through dispatch_fused here, as it
+routes the JAX package's StarkMachine.prove to fused.py. A CUDA graph
 cannot be written to disk, so fused.py's jax.export cache (aot.py) has no
 counterpart.
 """
@@ -44,7 +45,6 @@ import ctypes
 import os
 import threading
 import time
-from contextlib import closing
 
 import numpy as np
 import torch
@@ -53,8 +53,6 @@ from .. import kernels
 from ..ops import tfield as tf
 from ..ops.tchallenger import TChallenger
 from . import tfolder, tprover
-from .backend import resolve_device
-from .proof import MachineProof
 from ..trace import span
 
 
@@ -64,8 +62,9 @@ def enabled() -> bool:
 
 
 def _machine_key(machine, pk, chips, trace_domains, device, member=None):
-    """The key of a _FusedShard. A mesh's member (stark/sharded.py) is in
-    it: two members on one card never share a graph's static buffers."""
+    """The key of a _FusedShard. A mesh's member is in it (a device proved
+    on without a mesh has the index None): two members on one card never
+    share a graph's static buffers."""
     fri = machine.config.fri
     return (
         tuple((c.name, d.log_n) for c, d in zip(chips, trace_domains)),
@@ -273,63 +272,21 @@ def get_fused_fn(machine, pk, chips, trace_domains, traces, public_values, devic
     return fs, built, fetch, events
 
 
-def prove_shards_fused(machine, pk, records, device=None,
-                       stats: dict | None = None) -> MachineProof:
-    """Prove `records` through one graph per shard shape. Every shard is
-    padded to the batch-wide shape (the trace pipeline of stark/machine.py:
-    prove with fix_shapes=True), and shards group by chip-set signature, as
-    in fused.py: each group captures once and replays for each of its
-    shards. One device-to-host copy at the end, then tprover.finish per
-    shard.
-
-    `device`: None is the GPU and raises without one; "cpu" runs the body
-    without capture. `stats`, when given, receives per shard the trace-gen
-    wait and the host seconds of its call; the graphs this call built
-    (capture and instantiate seconds, nodes, pool bytes, launches recorded);
-    the device milliseconds of each replay (CUDA events); fetch and
-    assembly seconds."""
-    device = resolve_device(device)
-    assert len(records) >= 1
-    shards, built_now, waits, call_s, replay_events = [], [], [], [], []
-    with closing(tprover.shard_traces(machine, records, fix_shapes=True)) as pending:
-        for i in range(len(records)):
-            with span("shard", index=i) as sp:
-                with span("trace_wait"):
-                    record, wait = next(pending)
-                chips, traces, trace_domains, public_values = tprover.shard_layout(machine,
-                                                                                   record)
-                sp.set(chips=len(chips), rows=max(t.shape[0] for t in traces))
-                t0 = time.perf_counter()
-                fs, built, fetch, events = get_fused_fn(machine, pk, chips, trace_domains,
-                                                        traces, public_values, device)
-                call_s.append(time.perf_counter() - t0)
-                waits.append(wait)
-                if built:
-                    built_now.append(fs)
-                if events is not None:
-                    replay_events.append(events)
-                shards.append((fs, fetch, {"chips": chips, "trace_domains": trace_domains,
-                                           "public_values": public_values,
-                                           "fri": machine.config.fri}))
-
-    t0 = time.perf_counter()
-    with span("fetch"):
-        fetched = torch.cat([fetch for _fs, fetch, _d in shards]).cpu().numpy()
-    t1 = time.perf_counter()
-    proofs, off = [], 0
-    for fs, fetch, d in shards:
-        d["meta"] = fs.meta
-        with span("assemble"):
-            proofs.append(tprover.finish(pk, d, fetched[off : off + fetch.numel()]))
-        off += fetch.numel()
-    if stats is not None:
-        stats.update(
-            trace_wait_s=waits, call_s=call_s, fetch_s=t1 - t0,
-            assemble_s=time.perf_counter() - t1,
-            built=[{"capture_s": fs.capture_s, "instantiate_s": fs.instantiate_s,
-                    "nodes": fs.nodes, "pool_bytes": fs.pool_bytes,
-                    "launches": {k: sum(v.values()) for k, v in (fs.histogram or {}).items()}}
-                   for fs in built_now],
-            replay_ms=[a.elapsed_time(b) for a, b in replay_events],
-        )
-    return MachineProof(proofs)
+def dispatch_fused(machine, pk, record, member):
+    """The fused counterpart of tprover.dispatch_shard: one shard through
+    the _FusedShard of its (machine, shape, device, mesh member), issued on
+    the current stream without waiting for it. Returns dispatch_shard's
+    dict, with "built" (if this call built the graph: its capture and
+    instantiate seconds, nodes, pool bytes and launches recorded; else
+    None) and "events" (the CUDA events around its replay, or None)."""
+    chips, traces, trace_domains, public_values = tprover.shard_layout(machine, record)
+    fs, built, fetch, events = get_fused_fn(machine, pk, chips, trace_domains, traces,
+                                            public_values, member.device, member)
+    summary = None
+    if built:
+        summary = {"capture_s": fs.capture_s, "instantiate_s": fs.instantiate_s,
+                   "nodes": fs.nodes, "pool_bytes": fs.pool_bytes,
+                   "launches": {k: sum(v.values()) for k, v in (fs.histogram or {}).items()}}
+    return {"fetch": fetch, "meta": fs.meta, "chips": chips, "trace_domains": trace_domains,
+            "public_values": public_values, "fri": machine.config.fri,
+            "built": summary, "events": events}

@@ -39,7 +39,7 @@ from ..ops import tfield as tf
 from ..ops import tpcs
 from ..ops.tchallenger import TChallenger
 from . import tfolder
-from .shape import estimate_targets, fix_shape, generate_fixed
+from .shape import estimate_targets, fix_shape, generate_fixed, record_traces
 from ..trace import carried, current, span
 
 P = tf.P
@@ -195,28 +195,11 @@ def _waited(pool, futs, records):
 
 
 def _named_traces(machine, record):
-    named = getattr(record, "_fixed_traces", None)
-    if named is not None:
-        return list(named)
-    with span("tracegen") as sp:
-        chips = [c for c in machine.chips if c.air.included(record)]
-        sp.set(chips=len(chips))
-        if not getattr(record, "_deps_done", False):
-            for c in chips:
-                with span("tracegen.deps", chip=c.name):
-                    c.air.emit_synthetic(record)
-            for c in chips:
-                with span("tracegen.deps", chip=c.name):
-                    c.air.generate_dependencies(record, record)
-            try:
-                record._deps_done = True
-            except AttributeError:
-                pass
-        out = []
-        for c in chips:
-            with span("tracegen.trace", chip=c.name):
-                out.append((c, c.air.generate_trace(record, record)))
-        return out
+    """The record's (chip, trace) pairs (shape.record_traces). It keeps a
+    name of its own, which shard_layout calls through this module, so that
+    the trace generation of a shard's dispatch can be wrapped and timed:
+    zkbench's tracegen.host_s and prover.issue_s wrap it here."""
+    return record_traces(machine, record)
 
 
 def shard_layout(machine, record):

@@ -222,7 +222,7 @@ def stages(device, config: str = "core") -> None:
     d["verified"] = True
     d["legs_s"] = {
         "trace_wait": round(sum(stats["trace_wait_s"]), 4),
-        "dispatch": round(sum(stats.get("dispatch_s", stats.get("call_s", []))), 4),
+        "dispatch": round(sum(stats["dispatch_s"]), 4),
         "fetch": round(stats["fetch_s"], 4),
         "assemble": round(stats["assemble_s"], 4),
     }
